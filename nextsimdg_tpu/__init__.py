@@ -1,13 +1,13 @@
-"""nextsimdg_tpu — a TPU-native sea-ice model framework.
+"""nextsimdg_tpu — a sea-ice model framework for accelerators.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 draenog/nextsimdg (the neXtSIM_DG discontinuous-Galerkin sea-ice model):
 
 * ``config``    — Configurator/Configured/ConfiguredModule config stack
 * ``modules``   — runtime-selectable module registry
 * ``state``     — ModelState pytree (structure-of-arrays fields)
 * ``physics``   — column thermodynamics as pure, maskable JAX functions
-* ``dynamics``  — DG transport + mEVP rheology (Pallas-accelerated)
+* ``dynamics``  — DG transport + mEVP rheology
 * ``grid``      — model structures (DevGrid, RectGrid) + netCDF restart I/O
 * ``parallel``  — SPMD domain decomposition, halo exchange over device meshes
 * ``runtime``   — Model facade, Iterator time loop, CLI driver
@@ -15,7 +15,7 @@ draenog/nextsimdg (the neXtSIM_DG discontinuous-Galerkin sea-ice model):
 
 Numerics note: the thermodynamics column physics follows the reference's
 float64 arithmetic when the state is f64 (tests run with ``jax_enable_x64``
-on CPU); the dynamics benchmarks run in f32/bf16 on TPU.
+on CPU); the coupled model runs in f32 on the accelerator by default.
 """
 
 __version__ = "0.1.0"

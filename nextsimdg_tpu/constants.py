@@ -1,6 +1,6 @@
 """Physical constants and unit helpers.
 
-TPU-native re-expression of the reference constant namespaces
+Re-expression of the reference constant namespaces
 (``core/src/include/constants.hpp:11-144``): ``PhysicalConstants``, ``Ice``,
 ``Air``, ``Vapour``, ``Water`` and the inline unit-conversion helpers.
 

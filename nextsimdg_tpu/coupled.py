@@ -25,7 +25,7 @@ import jax
 import jax.numpy as jnp
 
 from .dynamics.mesh import RectMesh
-from .dynamics.mevp import DynamicsForcing, MEVPParams, MEVPSolver, VelocityState
+from .dynamics.mevp import DynamicsForcing, MEVPParams, VelocityState
 from .dynamics.transport import DGTransport, velocity_from_cg
 from .physics.nextsim_physics import NextsimPhysics
 from .state import Forcing, PrognosticState, safe_div
@@ -73,7 +73,6 @@ class CoupledModel:
         transport_substeps: int = 1,
         auto_substeps: bool = True,
         tvb_m: float = None,
-        transport_backend: str = "auto",
     ) -> None:
         """``spmd``: device-mesh axis names when the model runs inside
         shard_map on LOCAL blocks (see parallel.shardmap); default is the
@@ -81,8 +80,8 @@ class CoupledModel:
         ``ocean_mask``: optional (nx, ny) element mask (1=ocean, 0=land) for
         pan-Arctic-style domains — coastline faces become impermeable and
         coastal nodes no-slip. ``mevp_backend``: momentum-solver backend
-        ('auto', 'xla', 'pallas', 'pallas-tiled', or — under shard_map —
-        'blocked' for ghost-zone halo exchange). ``transport_substeps``:
+        ('auto', 'xla', or — under shard_map — 'blocked' for ghost-zone
+        halo exchange). ``transport_substeps``:
         advect with k sub-steps of dt/k per coupled step — the explicit
         DG advection is stable for u dt/(k dx) below ~1/(2p+1).
         ``auto_substeps`` (default True): k is chosen PER STEP from the
@@ -92,10 +91,7 @@ class CoupledModel:
         substeps; False pins k = transport_substeps exactly.
         ``tvb_m``: TVB constant of the minmod slope limiter applied before
         positivity limiting at every RK stage (None = off, 0.0 = pure
-        TVD; see DGTransport.limit_slopes).
-        ``transport_backend``: 'auto' (ghost-zone tiled Pallas kernel on
-        TPU for >=1M closed uniform grids, XLA otherwise), 'xla', or
-        'tiled-interpret' (force the tiled kernel in interpret mode)."""
+        TVD; see DGTransport.limit_slopes)."""
         self.mesh = mesh
         self.spmd = tuple(spmd)
         self.ocean_mask = None if ocean_mask is None else jnp.asarray(ocean_mask)
@@ -121,7 +117,6 @@ class CoupledModel:
         self.n_subcycles = n_subcycles
         self.transport_substeps = max(1, int(transport_substeps))
         self.auto_substeps = bool(auto_substeps)
-        self.transport_backend = transport_backend
         if physics is None:
             physics = NextsimPhysics()  # default modules, default parameters
         self.physics = physics
@@ -215,70 +210,6 @@ class CoupledModel:
             self.mesh.periodic_x, self.mesh.periodic_y, self.spmd,
         )
 
-    def _fused_dynamics_mode(self):
-        """'tpu' / 'interpret' when the fused dynamics kernel applies, else
-        None (falls back to the staged mEVP -> sampling -> transport path)."""
-        from .dynamics.kernels.coupled_pallas import fused_dynamics_supported
-        from .dynamics.mevp import MEVPSolver
-
-        if type(self.mevp) is not MEVPSolver:
-            return None
-        if not fused_dynamics_supported(self):
-            return None
-        if self.mevp.backend == "pallas-interpret":
-            return "interpret"
-        if self.mevp._kernel_choice() == "single":
-            return "tpu"
-        return None
-
-    def _tiled_transport_mode(self):
-        """'tpu[-spmd]' | 'interpret[-spmd]' | None for the tiled transport.
-
-        Under shard_map the '-spmd' modes run the blocked exchange wrapper
-        (``transport_substeps_tiled_spmd``): one ppermute pair per axis
-        per (H-1)//rings substeps, the single-chip tiled kernel on the
-        widened block."""
-        mesh = self.mesh
-        spmd = any(axis is not None for axis in self.spmd)
-        if spmd and not (mesh.uniform or mesh.is_local_view):
-            # Statically-non-uniform local mesh: staged spmd path.
-            # (Non-uniform LocalMeshView meshes, periodic domains AND
-            # uniform TVB configs DO ride the tiled kernel — metric
-            # planes and wall-delta masks travel as consts; halo_widen's
-            # ring wrap is the periodic condition.)
-            return None
-        if not mesh.uniform and self.transport.tvb_m is not None:
-            return None  # graded TVB tolerance planes: staged path
-        if self.transport_backend == "tiled-interpret":
-            return "interpret-spmd" if spmd else "interpret"
-        if self.transport_backend == "banded-interpret":
-            # Test mode for the y-banded wrapper (single device only).
-            return None if spmd else "interpret-banded"
-        if self.transport_backend != "auto":
-            return None
-        import jax as _jax
-
-        if _jax.default_backend() != "tpu":
-            return None
-        if spmd:
-            from .dynamics.kernels.transport_tiled import (
-                transport_tiled_spmd_config,
-            )
-
-            cfg = transport_tiled_spmd_config(self)
-            return "tpu-spmd" if cfg is not None else None
-        from .dynamics.kernels.transport_tiled import (
-            transport_banded_config, transport_tiled_config,
-        )
-
-        # Banding serves only shapes the full-width kernel cannot (e.g.
-        # lane extents not divisible by 128): measured at 16M, the
-        # DMA-bound transport kernel is FASTER with a degenerate
-        # full-width tile than banded (see transport_banded_config).
-        if transport_tiled_config(self) is not None:
-            return "tpu"
-        return "tpu-banded" if transport_banded_config(self) is not None else None
-
     # -- one coupled timestep ------------------------------------------------
     @partial(jax.jit, static_argnames=("self", "dt", "do_dynamics", "do_thermo"))
     def step(
@@ -294,35 +225,7 @@ class CoupledModel:
         velocity = state.velocity
         hice, cice, hsnow = state.hice, state.cice, state.hsnow
 
-        if do_dynamics and self._fused_dynamics_mode() is not None:
-            # Fused path: mEVP subcycles + CG sampling + limited DG
-            # transport in ONE Pallas kernel (kernels/coupled_pallas.py).
-            from .dynamics.kernels.coupled_pallas import fused_dynamics_pallas
-
-            mask = self.node_mask(dtype)
-            consts = self.mevp.step_consts(
-                velocity, hice[0], jnp.clip(cice[0], 0.0, 1.0),
-                dyn_forcing, mask, dt,
-            )
-            tracers = jnp.stack([hice, cice, hsnow], axis=1)
-            carry0 = (
-                velocity.u, velocity.v,
-                velocity.s11, velocity.s22, velocity.s12,
-            )
-            final, tracers = fused_dynamics_pallas(
-                self, carry0, tracers, consts, dt, self.n_subcycles,
-                face_masks=self.face_masks(dtype),
-                interpret=(self._fused_dynamics_mode() == "interpret"),
-            )
-            velocity = VelocityState(
-                u=final[0], v=final[1],
-                s11=final[2], s22=final[3], s12=final[4],
-            )
-            hice, cice, hsnow = tracers[:, 0], tracers[:, 1], tracers[:, 2]
-            hice = _clamp_dg(hice, 0.0, None)
-            cice = _clamp_dg(cice, 0.0, 1.0)
-            hsnow = _clamp_dg(hsnow, 0.0, None)
-        elif do_dynamics:
+        if do_dynamics:
             # 1. momentum: mEVP on cell means.
             h_mean = hice[0]
             a_mean = jnp.clip(cice[0], 0.0, 1.0)
@@ -361,89 +264,7 @@ class CoupledModel:
             # three tracers ride one batched pass (shared velocity reads).
             tracers = jnp.stack([hice, cice, hsnow], axis=1)  # (K, 3, nx, ny)
             masks = self.face_masks(dtype)
-            tiled_mode = self._tiled_transport_mode()
-            if tiled_mode is not None:
-                # Ghost-zone tiled Pallas transport: the CFL count is a
-                # GLOBAL reduction, so it is computed here from the full
-                # sampled velocity (bit-identical to the staged k) and
-                # passed into the kernel as an SMEM scalar.
-                from .dynamics.kernels.transport_tiled import (
-                    transport_substeps_tiled,
-                )
-                from .dynamics.transport import cfl_substeps
-
-                if self.auto_substeps:
-                    k = cfl_substeps(
-                        qv, dt, self.mesh, self.transport.basis.degree,
-                        k_floor=self.transport_substeps, spmd=self.spmd,
-                    )
-                else:
-                    k = jnp.int32(self.transport_substeps)
-                tile_kw = {}
-                if tiled_mode == "interpret":
-                    # Tiny tiles so small test grids exercise multiple
-                    # tiles; must divide nx exactly.
-                    nx = self.mesh.nx
-                    tile_kw = dict(tile_x=8 if nx % 8 == 0 else nx)
-                elif tiled_mode == "interpret-spmd":
-                    # Small exchange halo + tiles dividing the widened
-                    # local block, so tiny test grids chain rounds. TVB
-                    # doubles the rings per substep, so its k_cap needs
-                    # H=8 ((8-1)//4 = 1 substep per exchange at rk2).
-                    H = 4 if self.transport.tvb_m is None else 8
-                    nx_w = self.mesh.nx + 2 * H
-                    tile_kw = dict(
-                        H=H,
-                        tile_x=next(
-                            t for t in (8, 4, 2, nx_w) if nx_w % t == 0
-                        ),
-                    )
-                if self.is_high_order:
-                    # The CG2-sampled quadrature velocity rides the
-                    # kernel as 24 constant planes.
-                    tile_kw["qv"] = qv
-                else:
-                    tile_kw.update(u=velocity.u, v=velocity.v)
-                if tiled_mode.endswith("-spmd"):
-                    from .dynamics.kernels.transport_tiled import (
-                        transport_substeps_tiled_spmd,
-                    )
-
-                    tracers = transport_substeps_tiled_spmd(
-                        self, tracers,
-                        dt_sub=dt / k.astype(dtype), k=k, face_masks=masks,
-                        interpret=(tiled_mode == "interpret-spmd"), **tile_kw,
-                    )
-                elif tiled_mode.endswith("-banded"):
-                    from .dynamics.kernels.transport_tiled import (
-                        transport_substeps_tiled_banded,
-                    )
-
-                    band_kw = dict(tile_kw)
-                    band_kw.pop("tile_x", None)
-                    if tiled_mode == "interpret-banded":
-                        # Tiny bands + tiles so small test grids chain
-                        # bands and restitch rounds.
-                        ny = self.mesh.ny
-                        nx = self.mesh.nx
-                        band_kw["band"] = (
-                            ny // 2 if ny % 2 == 0 else ny,
-                            8,
-                            8 if nx % 8 == 0 else nx,
-                        )
-                    tracers = transport_substeps_tiled_banded(
-                        self, tracers,
-                        dt_sub=dt / k.astype(dtype), k=k, face_masks=masks,
-                        interpret=(tiled_mode == "interpret-banded"),
-                        **band_kw,
-                    )
-                else:
-                    tracers = transport_substeps_tiled(
-                        self, tracers,
-                        dt_sub=dt / k.astype(dtype), k=k, face_masks=masks,
-                        interpret=(tiled_mode == "interpret"), **tile_kw,
-                    )
-            elif self.auto_substeps:
+            if self.auto_substeps:
                 # CFL-adaptive substep count (traced; fori_loop lowers to a
                 # dynamic-trip-count while_loop). transport_substeps = floor.
                 from .dynamics.transport import cfl_substeps

@@ -4,18 +4,17 @@ The reference snapshot reserves a ``dynamics`` component but contains no code
 (``CMakeLists.txt:43-46``); this package supplies the north-star capability
 (BASELINE.json): higher-order discontinuous-Galerkin advection of the ice
 tracers and the mEVP-subcycled viscous-plastic momentum solver, designed
-TPU-first:
+for accelerators:
 
 * tracers are stored as DG coefficient arrays ``(ndof, nx, ny)`` — a
-  structure-of-arrays layout whose big spatial dims map onto TPU
-  (sublane, lane) tiles;
+  structure-of-arrays layout whose big spatial dims are contiguous;
 * the DG basis is orthogonal on the reference square, so the per-element
   mass matrix is *diagonal* — the "dense mass-matrix solve" of unstructured
   meshes reduces to a constant rescale, and the whole RHS is elementwise
-  math + neighbor shifts that XLA fuses into a few VPU passes;
-* the mEVP subcycle loop is a ``lax.fori_loop`` of stencil updates (with a
-  fused Pallas kernel for the hot path), sharded over a 2-D device mesh
-  with halo exchange (see ``nextsimdg_tpu.parallel``).
+  math + neighbor shifts that XLA fuses into a few elementwise passes;
+* the mEVP subcycle loop is a ``lax.fori_loop`` of stencil updates,
+  sharded over a 2-D device mesh with halo exchange (see
+  ``nextsimdg_tpu.parallel``).
 """
 
 from .mesh import RectMesh

@@ -106,8 +106,8 @@ def cg2_tables() -> CG2Tables:
     # the NONLINEAR VP-law projection in the mEVP subcycle becomes
     # standard reduced integration (4 Gauss points onto 3 dG1 modes, a
     # well-posed least-squares fit). The Gauss-point stacks are the
-    # dominant VMEM + VPU cost of the HO subcycle body, so NQ 9 -> 4
-    # roughly halves it (docs/performance.md round 3).
+    # dominant memory and arithmetic cost of the HO subcycle body, so
+    # NQ 9 -> 4 roughly halves it.
     xq, yq = np.meshgrid(GAUSS_POINTS_1D_2, GAUSS_POINTS_1D_2, indexing="ij")
     xq, yq = xq.ravel(), yq.ravel()
     wq = np.outer(GAUSS_WEIGHTS_1D_2, GAUSS_WEIGHTS_1D_2).ravel()

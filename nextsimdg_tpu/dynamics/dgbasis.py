@@ -11,7 +11,7 @@ the neXtSIM_DG convention of 1/3/6 local unknowns for dG0/dG1/dG2:
 Orthogonality makes the element mass matrix diagonal:
     M = diag(1, 1/12, 1/12, 1/180, 1/180, 1/144) * |E|
 so "inverting" it is a constant per-dof rescale — the key property that turns
-per-element dense solves into pure elementwise arithmetic on TPU.
+per-element dense solves into pure elementwise arithmetic.
 
 All tables are computed once in numpy at float64 and closed over as
 compile-time constants.
@@ -40,8 +40,7 @@ GAUSS_WEIGHTS_1D = np.array([5.0 / 18.0, 8.0 / 18.0, 5.0 / 18.0])
 # every dG0/dG1 integrand (volume: psi [deg<=1] x dphi [deg 0] x velocity
 # [bilinear CG1 or biquadratic CG2, deg<=2] <= 3; edges: trace [<=1] x vn
 # [<=2] <= 3). Halves the quadrature-point planes (NQ 9->4, NE 3->2) — the
-# dominant streaming cost of the transport phase and of the fused/tiled
-# kernels' quad-velocity constants.
+# dominant streaming cost of the transport phase.
 _GP2 = 0.5 / np.sqrt(3.0)
 GAUSS_POINTS_1D_2 = np.array([0.5 - _GP2, 0.5 + _GP2])
 GAUSS_WEIGHTS_1D_2 = np.array([0.5, 0.5])

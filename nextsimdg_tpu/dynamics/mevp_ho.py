@@ -25,7 +25,7 @@ import numpy as np
 
 from .cg2basis import LOCAL_NODE_SOURCE, PLANES, cg2_tables
 from .mesh import RectMesh
-from .mevp import MEVPParams
+from .mevp import MEVPParams, check_backend, pick_block_halo
 from .stencil import shift_m, shift_p
 from .transport import apply_table
 
@@ -159,74 +159,6 @@ def ho_velocity_to_quad(mesh: RectMesh, basis, u: HOField, v: HOField, spmd=(Non
     return QuadVelocity(vx_vol=vx_vol, vy_vol=vy_vol, vn_x=vn_x, vn_y=vn_y)
 
 
-def _ho_tiled_reasonable(cfg) -> bool:
-    """Shape guard for the HO tiled auto-selection (advisor r3 finding).
-
-    The 384^2..2048^2 sweep that validated "tiled beats XLA above the
-    single-block limit" covered configs with <=1.3x halo-redundant
-    compute; degenerate aspect ratios (very wide ny forcing tile_x 16/8)
-    reach 2-3x redundancy, where tiled may regress — fall back to XLA
-    there rather than extrapolate."""
-    tile_x, halo_x = cfg
-    return (tile_x + 2 * halo_x) / tile_x <= 1.75
-
-
-def ho_banded_config(nx: int, ny: int, n_consts: int = 29):
-    """(band_w, band_h) y-banding, or None when plain tiled suffices/fails.
-
-    At production widths (ny = 4096: BASELINE config 5) the full-row
-    tiled kernel's VMEM budget forces tile_x = 16 (2x halo redundancy —
-    rejected by ``_ho_tiled_reasonable``), and the round-5 measurement of
-    the resulting XLA fallback was a 10x cliff: 3.49e6 el/s at 16M vs
-    3.43e7 at 1M. Banding restores the tiled kernel by running the
-    subcycles on ``ny / band_w`` lane bands widened by ``band_h`` ghost
-    columns sliced from the NEIGHBORING bands (the blocked ghost-zone
-    exchange argument, with local slices instead of ppermute: each
-    subcycle invalidates one ghost ring, so band interiors stay exactly
-    equal through ``band_h`` subcycles). Score = lane redundancy x the
-    inner tile's row redundancy; ny=4096 selects band_w=1024, band_h=64
-    (ext 1152 -> tile (64, 8): 1.125 x 1.25 vs the rejected 2.0)."""
-    from .kernels.mevp_ho_tiled import ho_tiled_config
-
-    # Any divisor width works (the inner kernel zero-pads its lane extent
-    # to the next 128-multiple with inert columns) — necessary for the
-    # blocked exchange's widened local blocks, whose extents (local + 2H,
-    # e.g. 4224) have no power-of-two divisors in range. The padding cost
-    # is charged to the score via the PADDED extent.
-    # Descending: on score ties prefer FEWER, larger bands (fewer kernel
-    # instances to compile/launch; measured equal otherwise).
-    cands = sorted(
-        (d for d in range(256, min(ny // 2, 2048) + 1) if ny % d == 0),
-        reverse=True,
-    )
-    best = None
-    best_score = None
-    for band_h in (64, 32):
-        for band_w in cands:
-            if band_w < 2 * band_h:
-                continue
-            ext = band_w + 2 * band_h
-            cfg = ho_tiled_config(nx, ext, n_consts=n_consts)
-            if cfg is None or not _ho_tiled_reasonable(cfg):
-                continue
-            tile_x, halo_x = cfg
-            padded_ext = -(-ext // 128) * 128
-            # Redundant-compute product + per-round stitch/launch cost.
-            # The 16/band_h term is calibrated against the round-5 v5e
-            # A/B at 4096^2 (six (band_w, band_h) cells): pure redundancy
-            # ranks (512,32) first but (1024,64) MEASURES 13% faster —
-            # every stitch round pays pad/concat passes over 17 planes
-            # plus kernel re-entry; any weight in [8, 24] reproduces the
-            # measured winner, the ranking is insensitive inside that
-            # band.
-            score = (padded_ext / band_w) * (
-                (tile_x + 2 * halo_x) / tile_x
-            ) + 16.0 / band_h
-            if best_score is None or score < best_score:
-                best, best_score = (band_w, band_h), score
-    return best
-
-
 class MEVPSolverHO:
     """Higher-order mEVP solver. API parallels ``MEVPSolver.step``."""
 
@@ -234,21 +166,18 @@ class MEVPSolverHO:
         self,
         mesh: RectMesh,
         params: MEVPParams = MEVPParams(),
-        backend: str = "auto",  # 'auto' | 'xla' | 'pallas[-interpret]' |
-                                # 'blocked[-interpret]' | 'banded[-interpret]'
+        backend: str = "auto",  # one of mevp.BACKENDS
         spmd=(None, None),
-        block_halo: int = 16,  # ghost-zone width of the blocked exchange
-        band=None,  # (band_w, band_h) y-banding override (tests/tuning)
+        block_halo=16,  # ghost-zone width of the blocked exchange
     ) -> None:
         """Under shard_map (``spmd`` set) ``backend='blocked'`` widens the
         local block by ``block_halo`` ghost cells once per ``block_halo``
-        subcycles (one ppermute pair per axis per round) and runs the
-        fused/tiled HO Pallas kernels on the widened block — the same
+        subcycles (one ppermute pair per axis per round) — the same
         temporally-blocked exchange as ``MEVPSolver._blocked_subcycles``;
         each HO subcycle's gather(+1)/scatter(-1) pair invalidates exactly
         one ghost ring, so the owned interior stays exactly equal to the
-        per-subcycle-exchange result. 'auto' under shard_map selects
-        'blocked' on TPU for uniform meshes."""
+        per-subcycle-exchange result. 'auto' and 'xla' exchange width-1
+        halos every subcycle."""
         if params.adaptive_alpha:
             # The adaptive alpha/beta (MEVPParams.adaptive_alpha) needs a
             # consistent element-level alpha (dG1 stress relaxation at
@@ -260,21 +189,11 @@ class MEVPSolverHO:
             )
         self.mesh = mesh
         self.params = params
-        self.backend = backend
+        self.backend = check_backend(backend)
         self.spmd = tuple(spmd)
         if block_halo == "auto":
-            # The HO tiled kernel pads its extents internally, so no
-            # alignment constraint (unlike CG1's pick_block_halo) — but
-            # LARGER halos win regardless: fewer exchange rounds AND
-            # fewer pallas_call re-entries + widen/slice passes around
-            # the inner kernel. Measured (spherical spmd, 1024^2/device,
-            # v5e self-ring): h=16 2.19e7, 32 2.37e7, 48 2.34e7,
-            # 64 2.42e7 el/s. Scale with the block so small devices
-            # keep redundancy ((n+2h)/n)^2 bounded (~1.13x at h=n/16).
-            block_halo = max(16, min(64, min(mesh.nx, mesh.ny) // 16))
-            block_halo = min(block_halo, mesh.nx, mesh.ny)
+            block_halo = pick_block_halo(mesh.nx, mesh.ny)
         self.block_halo = int(block_halo)
-        self.band = None if band is None else (int(band[0]), int(band[1]))
         self.tables = cg2_tables()
 
     # -- plane <-> local-node machinery --------------------------------------
@@ -328,8 +247,7 @@ class MEVPSolverHO:
         Graded/spherical meshes: the per-element widths broadcast over the
         leading dG1-dof axis (piecewise-constant metric per element);
         ``metric``: optional (inv_dx, inv_dy) full planes — how the
-        widths reach the fused/tiled HO Pallas kernels (Mosaic rejects
-        captured array constants; see ``step_consts``)."""
+        widths reach the subcycle (see ``step_consts``)."""
         t = self.tables
         u_loc = self.gather_local(u)
         v_loc = self.gather_local(v)
@@ -353,7 +271,7 @@ class MEVPSolverHO:
         is NOT applied here — returns the raw integrals (Fu, Fv) as HOFields
         (units: stress x length). Metric weighting happens per element
         BEFORE the scatter, so graded meshes assemble consistently.
-        ``metric``: optional (dx, dy) full planes (kernel path)."""
+        ``metric``: optional (dx, dy) full planes (see ``step_consts``)."""
         t = self.tables
         if metric is not None:
             dx, dy = metric
@@ -425,103 +343,21 @@ class MEVPSolverHO:
 
     # -- the mEVP iteration --------------------------------------------------
     def _kernel_choice(self) -> str:
-        """'single[-interpret]' (fused VMEM-resident Pallas), 'tiled',
-        'blocked' (shard_map ghost zones) or 'xla'."""
-        if any(axis is not None for axis in self.spmd):
+        """'blocked' (shard_map ghost zones) or 'xla'."""
+        if self.backend == "blocked" and any(axis is not None for axis in self.spmd):
             # Non-uniform geometry under shard_map must arrive as a
             # LocalMeshView (per-device traced metric planes riding the
             # consts; see MEVPSolver._kernel_choice).
-            metric_ok = self.mesh.uniform or self.mesh.is_local_view
-            if self.backend in ("rdma", "rdma-interpret"):
-                if not metric_ok:
-                    raise NotImplementedError(
-                        "rdma under shard_map needs a uniform local mesh or "
-                        "a LocalMeshView of the non-uniform global mesh"
-                    )
-                return "rdma"
-            if self.backend in ("blocked", "blocked-interpret"):
-                if not metric_ok:
-                    raise NotImplementedError(
-                        "blocked exchange under shard_map needs a uniform "
-                        "local mesh or a LocalMeshView of the global mesh"
-                    )
-                return "blocked"
-            if (
-                self.backend == "auto"
-                and metric_ok
-                and jax.default_backend() == "tpu"
-                and min(self.mesh.nx, self.mesh.ny) >= self.block_halo
-            ):
-                # Multi-chip default on TPU: ghost-zone halo rounds whose
-                # widened local solve runs the fused/tiled HO Pallas
-                # kernels (the per-subcycle width-1 ppermute path
-                # re-streams all 46 planes from HBM every subcycle).
-                return "blocked"
-            # Per-subcycle width-1 ppermute halos on the XLA path.
-            return "xla"
-        # Graded/spherical meshes ride the HO kernels as 4 extra metric
-        # const planes (dx/dy/inv_dx/inv_dy; step_consts); A-weighted
-        # stresses add one a_{k} plane per CG2 plane family.
-        n_consts = self._n_consts()
-        if self.backend in ("pallas", "pallas-interpret"):
-            return (
-                "single-interpret"
-                if self.backend == "pallas-interpret"
-                else "single"
-            )
-        if self.backend in ("pallas-tiled", "pallas-tiled-interpret"):
-            return (
-                "tiled-interpret"
-                if self.backend == "pallas-tiled-interpret"
-                else "tiled"
-            )
-        if self.backend in ("banded", "banded-interpret"):
-            return "banded"
-        if self.backend == "xla":
-            return "xla"
-        if jax.default_backend() != "tpu":
-            return "xla"
-        from .kernels.mevp_ho_pallas import ho_pallas_supported
-
-        if ho_pallas_supported(self.mesh.nx, self.mesh.ny, n_consts=n_consts):
-            return "single"
-        from .kernels.mevp_ho_tiled import ho_tiled_config
-
-        # Everywhere above the single-block VMEM limit the tiled kernel
-        # beats XLA's 46-plane-per-subcycle re-streaming (measured v5e:
-        # 1.06x at 384^2, 1.44x at 512^2, 3.0x at 768^2, 3.2x at 1024^2 —
-        # XLA's effective bandwidth degrades with working-set size).
-        cfg = ho_tiled_config(self.mesh.nx, self.mesh.ny, n_consts=n_consts)
-        # Periodic axes ride the tiled kernel (round 4: modular wrap
-        # strips in x, in-block lane wrap in y) when the extent needs no
-        # inert padding — a wrap through pad rows/lanes would be wrong.
-        periodic_ok = (not self.mesh.periodic_x or self.mesh.nx % 64 == 0) and (
-            not self.mesh.periodic_y or self.mesh.ny % 128 == 0
-        )
-        if cfg is not None and periodic_ok and _ho_tiled_reasonable(cfg):
-            return "tiled"
-        # Lane extents too wide to tile under the VMEM budget (config-5
-        # 4096-wide rows force tile_x=16 = 2x redundancy, rejected above):
-        # y-banding restores the tiled kernel — measured 10x over the XLA
-        # fallback at 16M (round 5; see ho_banded_config).
-        periodic_x_ok = not self.mesh.periodic_x or self.mesh.nx % 64 == 0
-        if periodic_x_ok and (
-            self.band is not None
-            or ho_banded_config(self.mesh.nx, self.mesh.ny, n_consts)
-        ):
-            return "banded"
+            if not (self.mesh.uniform or self.mesh.is_local_view):
+                raise NotImplementedError(
+                    "blocked exchange under shard_map needs a uniform "
+                    "local mesh or a LocalMeshView of the global mesh"
+                )
+            return "blocked"
         return "xla"
 
-    def _n_consts(self) -> int:
-        """Const-plane count for kernel VMEM budgeting: 29 uniform, +4
-        metric planes graded/spherical, +4 a_{k} planes when A-weighted."""
-        n = 29 if self.mesh.uniform else 33
-        if self.params.a_weighted_stress:
-            n += 4
-        return n
-
     def step_consts(self, state: HOVelocityState, h, a, forcing, mask, dt: float):
-        """Per-step constant planes shared by the XLA and fused backends.
+        """Per-step constant planes shared by the single-device and blocked paths.
 
         29 planes: element ice strength, plus per CG2 plane k: dt/m, the
         active (mask * has-ice) factor, the constant velocity-update
@@ -535,12 +371,11 @@ class MEVPSolverHO:
         }
         area = None
         if not self.mesh.uniform:
-            # Per-element metric planes so graded/spherical meshes ride
-            # the fused/tiled HO Pallas kernels (the land-mask pattern;
-            # Mosaic rejects captured array constants). LocalMeshView
-            # (shard_map over a non-uniform global mesh): this device's
-            # traced block of the global metric — bit-identical at f64 to
-            # the static single-device planes.
+            # Per-element metric planes (the land-mask pattern), so the
+            # blocked exchange widens them like any other const.
+            # LocalMeshView (shard_map over a non-uniform global mesh):
+            # this device's traced block of the global metric —
+            # bit-identical at f64 to the static single-device planes.
             if self.mesh.is_local_view:
                 m = self.mesh.local_metric(self.spmd, dtype)
                 consts["dx"] = m["dx"]
@@ -590,8 +425,8 @@ class MEVPSolverHO:
         return consts
 
     def subcycle_body(self, carry, consts, dt: float):
-        """One HO mEVP subcycle — shared by the XLA path and the fused
-        Pallas kernel (traced inside the kernel on identical jnp code).
+        """One HO mEVP subcycle — shared by the single-device and blocked
+        paths.
 
         ``carry``: (u: HOField, v: HOField, s11, s22, s12) with stresses as
         (3, nx, ny) dG1 coefficients; ``consts``: see :meth:`step_consts`.
@@ -608,12 +443,10 @@ class MEVPSolverHO:
             1.0 / np.array([1.0, 1 / 12, 1 / 12])
         )[:, None]
 
-        # NOTE (round 4): folding the strain dG1 round trip into direct
-        # gradient-at-Gauss-point tables (grad_to_dg1^T @ phi_dg1) was
-        # implemented and MEASURED SLOWER on v5e (3.21e7 vs 3.27e7 el/s,
-        # ho_coupled_512): the composed (9, NQ) tables are dense (2x36
-        # MACs) while this factored pair exploits the projection tables'
-        # sparsity (2x19 + 3x12 = 112 total) — see docs/performance.md.
+        # The strain dG1 round trip stays factored (gradient tables, then
+        # phi_dg1): the composed (9, NQ) tables would be dense (2x36 MACs)
+        # while this factored pair exploits the projection tables'
+        # sparsity (2x19 + 3x12 = 112 total).
         graded = "inv_dx" in consts
         e11, e22, e12 = self.strain_rates(
             u, v,
@@ -689,41 +522,11 @@ class MEVPSolverHO:
         v_new = HOField(**{k: uv[k][1] for k in PLANES})
         return (u_new, v_new, s11, s22, s12)
 
-    def _blocked_inner_engine(self, nxw: int, nyw: int) -> str:
-        """Kernel for the widened local block of the blocked exchange.
-
-        'single[-interpret]' = the fused VMEM-resident HO kernel
-        (``mevp_ho_pallas``); 'tiled' when the widened block exceeds VMEM
-        but the full-row HO tiles fit; 'xla' otherwise (and on non-TPU
-        backends, except when testing via 'blocked-interpret')."""
-        if self.backend in ("blocked-interpret", "banded-interpret"):
-            return "single-interpret"
-        if jax.default_backend() != "tpu":
-            return "xla"
-        from .kernels.mevp_ho_pallas import ho_pallas_supported
-
-        if ho_pallas_supported(nxw, nyw, n_consts=self._n_consts()):
-            return "single"
-        from .kernels.mevp_ho_tiled import ho_tiled_config
-
-        # Same threshold as _kernel_choice: tiled beats XLA at every size
-        # above the single-block limit (measured 384^2..1024^2 sweep),
-        # with the same degenerate-shape redundancy guard.
-        cfg = ho_tiled_config(nxw, nyw, n_consts=self._n_consts())
-        if cfg is not None and _ho_tiled_reasonable(cfg):
-            return "tiled"
-        # Widened blocks of config-5-wide local domains (e.g. 4224 lanes
-        # at local 4096^2 + 2x64 ghosts): y-band the widened block so the
-        # tiled kernel still applies (round 5; 10x over the XLA fallback).
-        if ho_banded_config(nxw, nyw, self._n_consts()) is not None:
-            return "banded"
-        return "xla"
-
     def _blocked_subcycles(self, carry0, consts, dt, n_subcycles):
         """Ghost-zone ("temporally blocked") halo exchange under shard_map.
 
         The HO analogue of ``MEVPSolver._blocked_subcycles``
-        (mevp.py:445-515): widen all 17 state planes (4+4 CG2 velocity,
+        : widen all 17 state planes (4+4 CG2 velocity,
         3x3 dG1 stress coefficients) and the 29 constant planes by H ghost
         cells from the neighbor devices (ONE ppermute pair per axis), run
         H subcycles on the widened local block with plain closed-boundary
@@ -760,41 +563,14 @@ class MEVPSolverHO:
             backend="xla",
         )
         consts_w = {name: widen(value) for name, value in consts.items()}
-        engine = self._blocked_inner_engine(nx + 2 * h, ny + 2 * h)
-        banded = None
-        if engine == "banded":
-            # Config-5-wide widened blocks: y-band the local solve so the
-            # tiled kernel applies (the banded pad sees the widened
-            # block's own ghosts as interior data). Built once —
-            # loop-invariant across halo rounds.
-            banded = MEVPSolverHO(
-                local.mesh, self.params, backend="banded",
-                band=ho_banded_config(
-                    nx + 2 * h, ny + 2 * h, self._n_consts()
-                ),
-            )
 
         def round_body(carry, n_sub):
             padded = jax.tree.map(widen, carry)
 
-            if engine in ("single", "single-interpret"):
-                from .kernels.mevp_ho_pallas import ho_subcycles_pallas
+            def sub(_, c):
+                return local.subcycle_body(c, consts_w, dt)
 
-                padded = ho_subcycles_pallas(
-                    local, padded, consts_w, dt, n_sub,
-                    interpret=(engine == "single-interpret"),
-                )
-            elif engine == "tiled":
-                from .kernels.mevp_ho_tiled import ho_subcycles_tiled
-
-                padded = ho_subcycles_tiled(local, padded, consts_w, dt, n_sub)
-            elif engine == "banded":
-                padded = banded._banded_subcycles(padded, consts_w, dt, n_sub)
-            else:
-                def sub(_, c):
-                    return local.subcycle_body(c, consts_w, dt)
-
-                padded = jax.lax.fori_loop(0, n_sub, sub, padded)
+            padded = jax.lax.fori_loop(0, n_sub, sub, padded)
             return jax.tree.map(
                 lambda f: f[..., h : h + nx, h : h + ny], padded
             )
@@ -806,181 +582,6 @@ class MEVPSolverHO:
             remaining -= n_sub
             carry = round_body(carry, n_sub)
         return carry
-
-    def _banded_subcycles(self, carry0, consts, dt, n_subcycles):
-        """Single-device y-banding: the blocked ghost-zone argument with
-        LOCAL SLICES instead of ppermute.
-
-        The full-row tiled kernel holds (tile_x + 2h) x ny lanes of all
-        46+ planes in VMEM, so very wide domains (config-5's ny = 4096)
-        force degenerate tiles. Banding runs the subcycle rounds on
-        ``ny / band_w`` lane bands, each widened by ``band_h`` ghost
-        columns taken from its neighbors in the SAME global array (the
-        y-pad wraps when periodic, zero-fills at closed walls — the wall
-        condition); per subcycle the gather(+1)/scatter(-1) pair
-        invalidates one ghost ring, so after ``band_h`` subcycles the
-        band interiors are exactly the unbanded result and restitching
-        is exact. Compute redundancy: ext/band_w in lanes x the inner
-        tile's row redundancy (1.125 x 1.25 at 4096^2 vs the 2.0 the
-        VMEM budget forces unbanded; measured 10x over the XLA fallback:
-        3.49e6 -> 3.1e7-class el/s at 16M)."""
-        band = self.band or ho_banded_config(
-            self.mesh.nx, self.mesh.ny, self._n_consts()
-        )
-        if band is None:
-            raise ValueError(
-                f"backend='banded' on {self.mesh.nx}x{self.mesh.ny}: no "
-                "viable (band_w, band_h) — the mesh is too narrow to band "
-                "(every candidate width is >= 256); use backend='auto' "
-                "(the fused/tiled kernels handle small grids) or pass an "
-                "explicit band=(w, h)"
-            )
-        band_w, bh = band
-        nx, ny = self.mesh.nx, self.mesh.ny
-        if ny % band_w:
-            raise ValueError(
-                f"band width {band_w} does not divide ny={ny}; the last "
-                f"{ny % band_w} columns would never be computed"
-            )
-        px, py = self.mesh.periodic_x, self.mesh.periodic_y
-        n_bands = ny // band_w
-        ext = band_w + 2 * bh
-
-        def pad_y(f):
-            if py:
-                lo, hi = f[..., ny - bh:], f[..., :bh]
-            else:
-                lo = jnp.zeros_like(f[..., :bh])
-                hi = lo
-            return jnp.concatenate([lo, f, hi], axis=-1)
-
-        def band_slice(f, b):
-            return jax.lax.slice_in_dim(
-                f, b * band_w, b * band_w + ext, axis=f.ndim - 1
-            )
-
-        # Non-uniform geometry rides the (sliced) metric const planes;
-        # the shim mesh is unit uniform then (same as _blocked_subcycles).
-        local = MEVPSolverHO(
-            RectMesh(
-                nx=nx, ny=ext,
-                dx=self.mesh.dx if self.mesh.uniform else 1.0,
-                dy=self.mesh.dy if self.mesh.uniform else 1.0,
-                periodic_x=px,  # x is never cut: the global wrap is local
-            ),
-            self.params,
-            backend="xla",
-        )
-        # Pad each const plane ONCE, then slice per band (padding inside
-        # the per-band comprehension would trace n_bands identical
-        # concatenates per plane).
-        consts_p = {name: pad_y(value) for name, value in consts.items()}
-        consts_b = [
-            {name: band_slice(value, b) for name, value in consts_p.items()}
-            for b in range(n_bands)
-        ]
-        engine = self._blocked_inner_engine(nx, ext)
-
-        def run_engine(band_carry, kconsts, n_sub):
-            if engine in ("single", "single-interpret"):
-                from .kernels.mevp_ho_pallas import ho_subcycles_pallas
-
-                return ho_subcycles_pallas(
-                    local, band_carry, kconsts, dt, n_sub,
-                    interpret=(engine == "single-interpret"),
-                )
-            if engine == "tiled":
-                from .kernels.mevp_ho_tiled import ho_subcycles_tiled
-
-                return ho_subcycles_tiled(local, band_carry, kconsts, dt, n_sub)
-
-            def sub(_, c):
-                return local.subcycle_body(c, kconsts, dt)
-
-            return jax.lax.fori_loop(0, n_sub, sub, band_carry)
-
-        def round_body(carry, n_sub):
-            padded = jax.tree.map(pad_y, carry)
-            outs = []
-            for b in range(n_bands):
-                got = run_engine(
-                    jax.tree.map(lambda f, b=b: band_slice(f, b), padded),
-                    consts_b[b], n_sub,
-                )
-                outs.append(
-                    jax.tree.map(lambda f: f[..., bh : bh + band_w], got)
-                )
-            return jax.tree.map(
-                lambda *fs: jnp.concatenate(fs, axis=-1), *outs
-            )
-
-        carry = carry0
-        remaining = n_subcycles
-        while remaining > 0:
-            n_sub = min(bh, remaining)
-            remaining -= n_sub
-            carry = round_body(carry, n_sub)
-        return carry
-
-    def _rdma_subcycles(self, carry0, consts, dt, n_subcycles):
-        """Ghost-zone rounds whose halo exchange is an in-kernel RDMA
-        overlapped with the interior compute — the HO instantiation of
-        ``kernels/mevp_rdma.py``: 17 state planes (4+4 CG2 velocity,
-        3x3 dG1 stress coefficients) ride the same two-phase
-        x-then-extended-y band exchange the CG1 solver uses, with the
-        identical one-ring-per-subcycle invalidation argument (the HO
-        gather(+1)/scatter(-1) pair). Consts (29-37 planes) are widened
-        once per step via ppermute; non-uniform geometry (LocalMeshView)
-        travels in those const planes.
-
-        VMEM note: the kernel holds the whole local state + widened
-        consts in VMEM (46+ planes) — local blocks up to ~512^2 at f32;
-        Mosaic fails loudly beyond that.
-        """
-        from .kernels.mevp_ho_tiled import _flatten_state, _unflatten_state
-        from .kernels.mevp_rdma import mevp_round_rdma
-        from .stencil import halo_widen
-
-        ax_x, ax_y = self.spmd
-        px, py = self.mesh.periodic_x, self.mesh.periodic_y
-        h = self.block_halo
-
-        def widen(f):
-            if ax_x is not None:
-                f = halo_widen(f, h, 0, px, ax_x)
-            if ax_y is not None:
-                f = halo_widen(f, h, 1, py, ax_y)
-            return f
-
-        consts_w = {name: widen(value) for name, value in consts.items()}
-        # Shim mesh: unit uniform when the geometry rides the metric const
-        # planes (LocalMeshView — subcycle_body keys on the consts).
-        local = MEVPSolverHO(
-            RectMesh(
-                nx=self.mesh.nx, ny=self.mesh.ny,
-                dx=self.mesh.dx if self.mesh.uniform else 1.0,
-                dy=self.mesh.dy if self.mesh.uniform else 1.0,
-            ),
-            self.params,
-            backend="xla",
-        )
-        interpret = self.backend == "rdma-interpret"
-
-        def body_fn(planes, kconsts):
-            return tuple(_flatten_state(
-                local.subcycle_body(_unflatten_state(list(planes)), kconsts, dt)
-            ))
-
-        carry = tuple(_flatten_state(carry0))
-        remaining = n_subcycles
-        while remaining > 0:
-            n_sub = min(h, remaining)
-            remaining -= n_sub
-            carry = mevp_round_rdma(
-                body_fn, carry, consts_w, n_sub, h, (ax_x, ax_y),
-                periodic=(px, py), interpret=interpret,
-            )
-        return _unflatten_state(list(carry))
 
     @partial(jax.jit, static_argnames=("self", "dt", "n_subcycles"))
     def step(
@@ -995,31 +596,8 @@ class MEVPSolverHO:
     ) -> HOVelocityState:
         consts = self.step_consts(state, h, a, forcing, mask, dt)
         carry0 = (state.u, state.v, state.s11, state.s22, state.s12)
-        choice = self._kernel_choice()
-        if choice in ("single", "single-interpret"):
-            from .kernels.mevp_ho_pallas import ho_subcycles_pallas
-
-            carry = ho_subcycles_pallas(
-                self, carry0, consts, dt, n_subcycles,
-                interpret=(choice == "single-interpret"),
-            )
-        elif choice in ("tiled", "tiled-interpret"):
-            from .kernels.mevp_ho_tiled import ho_subcycles_tiled
-
-            kwargs = {}
-            if choice == "tiled-interpret":
-                # Tiny tiles so small test grids exercise multiple tiles
-                # (the kernel pads nx to a 64-multiple, so 8 divides).
-                kwargs = dict(tile_x=8, halo_x=4, interpret=True)
-            carry = ho_subcycles_tiled(
-                self, carry0, consts, dt, n_subcycles, **kwargs
-            )
-        elif choice == "banded":
-            carry = self._banded_subcycles(carry0, consts, dt, n_subcycles)
-        elif choice == "blocked":
+        if self._kernel_choice() == "blocked":
             carry = self._blocked_subcycles(carry0, consts, dt, n_subcycles)
-        elif choice == "rdma":
-            carry = self._rdma_subcycles(carry0, consts, dt, n_subcycles)
         else:
             def subcycle(_, c):
                 return self.subcycle_body(c, consts, dt)

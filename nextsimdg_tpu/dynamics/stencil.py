@@ -10,9 +10,9 @@ All dynamics fields use the *owned* layout: arrays are exactly (..., nx, ny).
   domain-boundary face is implicit (zero flux when closed, wraps when
   periodic); y-edges analogous.
 
-Uniform shapes mean uniform sharding over the device mesh and uniform
-Pallas tiles; shifts become ``jnp.roll`` (a collective-permute under SPMD)
-or zero-filled concatenations.
+Uniform shapes mean uniform sharding over the device mesh; shifts become
+``jnp.roll`` (a collective-permute under SPMD) or zero-filled
+concatenations.
 """
 
 from __future__ import annotations
@@ -31,12 +31,12 @@ def _ring_perm(axis_name: str, direction: int):
 def shift_p(f, axis: int, periodic: bool, axis_name: str = None):
     """f[i+1] along ``axis``: the +1 neighbor; zero-filled when closed.
 
-    Static slices + concatenate (not gather) so the same code lowers both in
-    XLA and inside Pallas/Mosaic kernels.
+    Static slices + concatenate (not gather), which XLA fuses into the
+    consuming elementwise pass.
 
     With ``axis_name`` (inside ``shard_map``): the array is a local block of
     a domain sharded along that mesh axis; the missing last slice comes from
-    the +1 neighbor device via a halo ``ppermute`` over ICI (the rightmost
+    the +1 neighbor device via a halo ``ppermute`` (the rightmost
     device receives zeros when the global boundary is closed, or wraps when
     periodic).
     """

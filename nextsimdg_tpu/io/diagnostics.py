@@ -2,15 +2,17 @@
 
 Observability beyond the reference (whose only output is the final restart;
 SURVEY.md section 5): appends time slices of selected prognostic fields to
-an HDF5 file with an unlimited time dimension. Configured via
-``model.{output_period,output_file,output_fields}``.
+a numpy ``.npz`` archive. Slice ``n`` is stored as the members ``time/<n>``
+and ``<field>/<n>`` (native dtype), each appended to the zip archive as it
+is written, so every completed slice is on disk without rewriting earlier
+ones. Configured via ``model.{diagnostics_file,diagnostics_period}``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import zipfile
+from typing import Sequence
 
-import h5py
 import numpy as np
 
 DEFAULT_FIELDS = ("hice", "cice", "hsnow", "sst", "sss")
@@ -24,47 +26,25 @@ class DiagnosticWriter:
     ) -> None:
         self.path = path
         self.field_names = tuple(field_names)
-        self._file: Optional[h5py.File] = None
-
-    def _ensure_open(self, arrays) -> h5py.File:
-        if self._file is None:
-            self._file = h5py.File(self.path, "w")
-            self._file.create_dataset(
-                "time", shape=(0,), maxshape=(None,), dtype="f8"
-            )
-            for name in self.field_names:
-                arr = arrays[name]
-                # Native dtype: upcasting f32 production fields to f8
-                # doubled file size and write time (the coupled-restart
-                # writer had the same round-5 finding at 16M).
-                self._file.create_dataset(
-                    name,
-                    shape=(0, *arr.shape),
-                    maxshape=(None, *arr.shape),
-                    dtype=arr.dtype,
-                    chunks=(1, *arr.shape),
-                )
-        return self._file
+        self._n_slices = 0
 
     def write(self, time: float, fields) -> None:
         """Append one time slice; ``fields`` maps name -> (nx, ny) array."""
-        arrays = {
-            name: np.asarray(fields[name]) for name in self.field_names
-        }
-        handle = self._ensure_open(arrays)
-        n = handle["time"].shape[0]
-        handle["time"].resize((n + 1,))
-        handle["time"][n] = time
-        for name, arr in arrays.items():
-            ds = handle[name]
-            ds.resize((n + 1, *arr.shape))
-            ds[n] = arr
-        handle.flush()
+        arrays = {"time": np.float64(time)}
+        arrays.update(
+            (name, np.asarray(fields[name])) for name in self.field_names
+        )
+        # The first slice truncates whatever the path held before.
+        mode = "a" if self._n_slices else "w"
+        with zipfile.ZipFile(self.path, mode, allowZip64=True) as archive:
+            for name, arr in arrays.items():
+                member = f"{name}/{self._n_slices:08d}.npy"
+                with archive.open(member, "w", force_zip64=True) as handle:
+                    np.lib.format.write_array(handle, arr, allow_pickle=False)
+        self._n_slices += 1
 
     def close(self) -> None:
-        if self._file is not None:
-            self._file.close()
-            self._file = None
+        """Nothing to release: every write opens and closes the archive."""
 
     def __enter__(self) -> "DiagnosticWriter":
         return self
@@ -75,8 +55,9 @@ class DiagnosticWriter:
 
 def read_diagnostics(path: str):
     """Read a diagnostics file into {name: array} with 'time' included."""
-    out = {}
-    with h5py.File(path, "r") as handle:
-        for key in handle:
-            out[key] = np.asarray(handle[key])
-    return out
+    slices = {}
+    with np.load(path, allow_pickle=False) as archive:
+        for key in sorted(archive.files):
+            name = key.rpartition("/")[0]
+            slices.setdefault(name, []).append(archive[key])
+    return {name: np.stack(values) for name, values in slices.items()}

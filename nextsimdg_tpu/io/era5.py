@@ -37,12 +37,15 @@ dummy constants (or an ocean archive merged by the caller).
 from __future__ import annotations
 
 import re
-from typing import Dict, Optional, Sequence
+from typing import TYPE_CHECKING, Dict, Optional, Sequence
 
-import h5py
 import numpy as np
 
 from .forcing_file import DUMMY_VALUES, write_forcing_archive
+from .hdf5 import require_h5py
+
+if TYPE_CHECKING:
+    import h5py
 
 __all__ = [
     "ERA5Dataset",
@@ -134,7 +137,7 @@ class ERA5Dataset:
     """
 
     def __init__(self, path: str) -> None:
-        with h5py.File(path, "r") as handle:
+        with require_h5py().File(path, "r") as handle:
             time_name = self._find(handle, _TIME_NAMES, "time")
             lat_name = self._find(handle, _LAT_NAMES, "latitude")
             lon_name = self._find(handle, _LON_NAMES, "longitude")
@@ -155,7 +158,9 @@ class ERA5Dataset:
             coord_names = {time_name, lat_name, lon_name, "expver", "number"}
             self.fields: Dict[str, np.ndarray] = {}
             for name, node in handle.items():
-                if name in coord_names or not isinstance(node, h5py.Dataset):
+                if name in coord_names or not isinstance(
+                    node, require_h5py().Dataset
+                ):
                     continue
                 if node.ndim < 3:
                     continue

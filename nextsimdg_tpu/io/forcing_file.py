@@ -17,11 +17,11 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-import h5py
 import jax.numpy as jnp
 import numpy as np
 
 from ..state import Forcing
+from .hdf5 import require_h5py
 
 THERMO_FIELDS = ("tair", "dew2m", "pair", "sw_in", "lw_in", "mld", "snowfall", "wind")
 DYNAMICS_FIELDS = ("u_atm", "v_atm", "u_ocean", "v_ocean")
@@ -37,7 +37,7 @@ DUMMY_VALUES = {
 def write_forcing_archive(path: str, time, fields: Dict[str, np.ndarray]) -> None:
     """Write a forcing archive: time (T,), each field (T, nx, ny)."""
     time = np.asarray(time, dtype=np.float64)
-    with h5py.File(path, "w") as handle:
+    with require_h5py().File(path, "w") as handle:
         group = handle.create_group("forcing")
         group.create_dataset("time", data=time)
         for name, series in fields.items():
@@ -57,7 +57,7 @@ class ForcingProvider:
     def __init__(self, path: str, periodic: bool = False, dtype=jnp.float32) -> None:
         self.dtype = dtype
         self.periodic = periodic
-        with h5py.File(path, "r") as handle:
+        with require_h5py().File(path, "r") as handle:
             group = handle["forcing"]
             self.time = np.asarray(group["time"], dtype=np.float64)
             self.fields = {

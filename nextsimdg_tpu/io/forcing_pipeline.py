@@ -39,7 +39,19 @@ def _build_library() -> str:
         not os.path.exists(lib_path)
         or os.path.getmtime(lib_path) < os.path.getmtime(src_path)
     ):
-        subprocess.run(["make", "-C", native_dir], check=True, capture_output=True)
+        try:
+            subprocess.run(
+                ["make", "-C", native_dir], check=True, capture_output=True,
+                text=True,
+            )
+        except FileNotFoundError as err:
+            raise RuntimeError(
+                f"building {_LIB_NAME} needs make and g++: {err}"
+            ) from err
+        except subprocess.CalledProcessError as err:
+            raise RuntimeError(
+                f"building {_LIB_NAME} failed:\n{err.stdout}{err.stderr}"
+            ) from err
     return lib_path
 
 

@@ -23,8 +23,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence
 
-import h5py
 import numpy as np
+
+from .hdf5 import require_h5py
 
 STRUCTURE_NODE = "structure"
 DATA_NODE = "data"
@@ -79,13 +80,13 @@ def _decode_attr(value) -> str:
 
 def read_structure_type(path: str) -> str:
     """Read ``/structure@type`` (cf. ``StructureFactory.cpp:46-55``)."""
-    with h5py.File(path, "r") as handle:
+    with require_h5py().File(path, "r") as handle:
         return _decode_attr(handle[STRUCTURE_NODE].attrs[TYPE_ATTR])
 
 
 def read_restart(path: str) -> RestartFields:
     """Read a restart file into numpy arrays (cf. ``DevGridIO::init``)."""
-    with h5py.File(path, "r") as handle:
+    with require_h5py().File(path, "r") as handle:
         structure_type = _decode_attr(handle[STRUCTURE_NODE].attrs[TYPE_ATTR])
         data = handle[DATA_NODE]
         fields = {name: np.asarray(data[name], dtype=np.float64) for name in VAR_NAMES_2D}
@@ -107,7 +108,7 @@ def write_restart(
     nx, ny = np.asarray(fields["hice"]).shape
     nlayers = int(tice.shape[2])
 
-    with h5py.File(path, "w") as handle:
+    with require_h5py().File(path, "w") as handle:
         handle.attrs.create(
             "_NCProperties", np.bytes_("version=2,netcdf=4.8.1,hdf5=1.12.1")
         )

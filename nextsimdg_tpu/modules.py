@@ -1,6 +1,6 @@
 """Runtime-selectable module registry.
 
-TPU-native re-design of the reference ``ModuleLoader`` singleton
+Re-design of the reference ``ModuleLoader`` singleton
 (``core/src/ModuleLoader.cpp:23-61``, ``core/src/include/ModuleLoader.hpp``)
 and its Python code generator (``core/src/modules/moduleloader_builder.py``).
 

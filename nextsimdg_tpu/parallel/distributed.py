@@ -1,19 +1,21 @@
 """Multi-host initialization.
 
-Extends the device mesh across hosts over DCN: each host runs the same SPMD
-program; JAX's runtime routes intra-slice collectives over ICI and
-cross-host traffic over DCN. No separate message-passing runtime is needed
-(SURVEY.md section 5: the TPU-native replacement for the absent MPI layer).
+Extends the device mesh across hosts: each host runs the same SPMD
+program; JAX's runtime routes collectives within a host over its device
+links and cross-host traffic over the network. No separate message-passing
+runtime is needed (SURVEY.md section 5: the replacement for the absent MPI
+layer).
 
-Typical pod-slice launch (one process per host)::
+Typical multi-host launch (one process per host)::
 
     from nextsimdg_tpu.parallel import distributed
-    distributed.initialize()             # env-configured (TPU pods: automatic)
+    distributed.initialize(coordinator_address=..., num_processes=...,
+                           process_id=...)
     mesh = make_spatial_mesh()           # all global devices
     ...
 
-For explicit coordination (e.g. GPU clusters or manual TPU setups) pass
-``coordinator_address``, ``num_processes`` and ``process_id``.
+Pass ``coordinator_address``, ``num_processes`` and ``process_id``
+explicitly where the cluster environment does not provide them.
 """
 
 from __future__ import annotations

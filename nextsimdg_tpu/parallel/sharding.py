@@ -21,67 +21,16 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
-def _blocked_shape_cost(
-    local_nx: int, local_ny: int, n_consts: int = 7
-) -> Tuple[int, float]:
-    """(tier, per-element cost) of running the blocked mEVP path on one
-    device's ``(local_nx, local_ny)`` block.
-
-    Reuses the kernel selection's own measured cost model: widen the
-    block by the auto exchange halo, then cost the inner engine that
-    selection would pick — the fused VMEM-resident kernel (pure compute
-    times the ghost-ring redundancy), the full-row tiled kernel
-    (overlap-aware tile cost model times redundancy), the lane-halo
-    fallback tiles (tier 1) or per-subcycle XLA streaming (tier 2).
-    Lower tier always wins; within a tier, lower cost.
-    """
-    from ..dynamics.kernels.mevp_pallas import pallas_supported
-    from ..dynamics.kernels.mevp_tiled import (
-        _COMPUTE_PS_PER_EL,
-        _tile_cost_per_element,
-        auto_config,
-    )
-    from ..dynamics.mevp import pick_block_halo
-
-    h = pick_block_halo(local_nx, local_ny, n_consts=n_consts)
-    wx, wy = local_nx + 2 * h, local_ny + 2 * h
-    redundancy = (wx * wy) / (local_nx * local_ny)
-    # Exchange-frequency term: the blocked design pays one neighbor
-    # exchange (≈4 messages) per h subcycles, so a clamped-small h on a
-    # thin block multiplies the message count. The per-message latency
-    # equivalent (2 µs) is NOMINAL — unmeasurable on one chip — but it
-    # is negligible for production-size blocks (0.1 ps/el at local
-    # 1024², h=64) and only steers tiny blocks away from degenerate
-    # thin factorizations whose clamped h would thrash the interconnect.
-    exchange = (4.0 / h) * 2e6 / (local_nx * local_ny)
-    if pallas_supported(wx, wy, n_consts=n_consts):
-        return (0, _COMPUTE_PS_PER_EL * redundancy + exchange)
-    cfg = auto_config(wx, wy, n_consts=n_consts)
-    if cfg is None:
-        return (2, redundancy)
-    tile_x, tile_y, halo_x, _halo_y = cfg
-    if tile_y != wy:
-        return (1, redundancy)  # lane-halo fallback tiles
-    cost = _tile_cost_per_element(wx, wy, tile_x, halo_x, n_fields=n_consts + 5)
-    return (0, cost * redundancy + exchange)
-
-
-def pick_mesh_shape(
-    n_devices: int, nx: int, ny: int, n_consts: int = 7
-) -> Tuple[int, int]:
+def pick_mesh_shape(n_devices: int, nx: int, ny: int) -> Tuple[int, int]:
     """Grid-aware device-mesh factorization (px, py) for an (nx, ny) grid.
 
-    Measured motivation (docs/performance.md, round-5 aspect-ratio
-    section): the full-row tiled mEVP kernels hold every plane of a
-    ``(tile_x + 2h) x local_ny`` block in VMEM, so wide LOCAL lane
-    extents force narrow ``tile_x`` and real halo-redundancy cost — the
-    same 16M elements run 15% faster at 1024 local lanes than at 4096.
-    Rather than hard-coding "lanes <= 2048", score every factorization
-    of the device count whose local block divides the grid with the
-    kernel selection's own cost model (:func:`_blocked_shape_cost`) and
-    take the argmin; ties break toward the squarest mesh (smallest halo
-    perimeter). Falls back to the squarest factorization when no
-    factorization divides the grid (GSPMD pads uneven shards).
+    Every device of one host reaches every other at the same rate, so
+    the cost of a factorization is the halo it exchanges: take the
+    factorization whose local block ``(nx/px, ny/py)`` divides the grid
+    with the smallest perimeter. Ties split the leading axis X first,
+    whose halo strips are contiguous rows of the row-major planes. Falls
+    back to the squarest factorization when no factorization divides the
+    grid (GSPMD pads uneven shards).
     """
     best = None
     best_key = None
@@ -91,8 +40,7 @@ def pick_mesh_shape(
         py = n_devices // px
         if nx % px or ny % py:
             continue
-        tier, cost = _blocked_shape_cost(nx // px, ny // py, n_consts=n_consts)
-        key = (tier, cost, abs(px - py))
+        key = (nx // px + ny // py, -px)
         if best_key is None or key < best_key:
             best, best_key = (px, py), key
     if best is not None:
@@ -112,8 +60,8 @@ def make_spatial_mesh(
 
     Default shape: as square as the device count allows (e.g. 8 -> 4x2).
     With ``grid_shape`` (the global (nx, ny) element grid) the
-    factorization is chosen by :func:`pick_mesh_shape`'s measured cost
-    model instead; an explicit ``shape`` always wins.
+    factorization is chosen by :func:`pick_mesh_shape`'s halo-perimeter
+    rule instead; an explicit ``shape`` always wins.
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)

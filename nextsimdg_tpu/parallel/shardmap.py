@@ -67,8 +67,8 @@ def build_sharded_coupled_model(
         # metric, which one shard_map trace cannot hold statically — the
         # LocalMeshView slices the global metric factors by device
         # coordinates at trace time, and the solvers route it through
-        # their metric const planes (so the blocked/tiled/RDMA fast paths
-        # keep working; see dynamics.mesh.LocalMeshView).
+        # their metric const planes (so the blocked exchange keeps
+        # working; see dynamics.mesh.LocalMeshView).
         from ..dynamics.mesh import LocalMeshView
 
         local_mesh = LocalMeshView(global_mesh, px, py)

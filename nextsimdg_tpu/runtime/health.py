@@ -72,7 +72,7 @@ def finite_probe(state: Any) -> bool:
 
     One fused JITTED reduction; works on replicated, GSPMD-sharded and
     shard_map-produced global arrays alike, including multi-process
-    (pod) global arrays whose shards are not all addressable — eager
+    (multi-host) global arrays whose shards are not all addressable — eager
     ops would raise there, but a jitted reduce lowers to a sharded
     collective and returns a replicated scalar on every process.
     """

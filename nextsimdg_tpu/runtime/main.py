@@ -14,26 +14,13 @@ from typing import Optional, Sequence
 
 from ..config import CommandLineParser, Configurator, ConfiguredModule
 from ..modules import ModuleRegistry
+from ..utils.compile_cache import enable_compile_cache
 from ..utils.timer import main_timer
 from .model import Model
 
 
-def _honor_platform_env() -> None:
-    """Re-assert JAX_PLATFORMS over site plugins that config-override it."""
-    import os
-
-    platform = os.environ.get("JAX_PLATFORMS")
-    if platform:
-        import jax
-
-        try:
-            jax.config.update("jax_platforms", platform)
-        except Exception:
-            pass
-
-
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    _honor_platform_env()
+    enable_compile_cache()
     argv = list(sys.argv if argv is None else argv)
 
     # Pass the command line to the Configurator (so config options can be

@@ -1,16 +1,16 @@
 """Model state pytrees.
 
-TPU-native replacement for the reference's per-element data model
+Array-native replacement for the reference's per-element data model
 (``core/src/include/{PrognosticData,ExternalData}.hpp``,
 ``physics/src/include/PhysicsData.hpp``, ``core/src/include/ElementData.hpp``):
 instead of a ``std::vector<ElementData>`` of heap objects (AoS), state is a
 structure-of-arrays pytree — one ``jnp`` array per field over the whole grid —
-so the per-element physics becomes batched vector arithmetic on the VPU and
+so the per-element physics becomes batched vector arithmetic and
 the per-element "loop" disappears into XLA.
 
 Array layout: 2-D fields are ``(nx, ny)`` matching the restart-file dims
 (``DevGridIO.cpp:169-201``); layered fields are ``(nlayers, nx, ny)`` with the
-small layer dim leading so the big spatial dims map onto TPU (sublane, lane).
+small layer dim leading so the big spatial dims stay contiguous.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 # if needed, then run one timestep on the 10x10 devgrid.
 #
 # The dev grid is 100 elements — accelerator compile/transfer latency
-# dominates, so this script runs on the CPU backend; override with
-# NEXTSIM_PLATFORM=tpu for device runs.
+# dominates, so this script runs on the CPU backend; set NEXTSIM_PLATFORM
+# (e.g. to cuda) to run it on an accelerator.
 cd "$(dirname "$0")"
 export PYTHONPATH="$(cd .. && pwd)${PYTHONPATH:+:$PYTHONPATH}"
 export JAX_PLATFORMS="${NEXTSIM_PLATFORM:-cpu}"

@@ -15,9 +15,8 @@ def test_scaling_harness_runs_on_1_and_2_devices():
     t1, sel1 = scaling.run_once(devices[:1], local_n=8, chunk=2)
     t2, sel2 = scaling.run_once(devices[:2], local_n=8, chunk=2)
     assert t1 > 0 and t2 > 0
-    # Path-selection telemetry (round 4): every cell reports its kernels.
-    assert set(sel1) == {"mevp", "transport"}
-    assert sel2["transport"] in ("staged-xla", "tpu-spmd")
+    # Path-selection telemetry: every cell reports its mEVP exchange.
+    assert sel1 == sel2 == {"mevp": "xla"}
 
 
 def test_advection_benchmark_small():
@@ -38,14 +37,13 @@ def test_scaling_harness_explicit_paths():
     budget = scaling.comm_budget(64)
     assert budget["blocked"]["messages"] < budget["shardmap"]["messages"]
     assert budget["blocked"]["bytes"] < budget["shardmap"]["bytes"]
-    assert budget["rdma"]["bytes"] == budget["blocked"]["bytes"]
+    assert set(budget) == {"shardmap", "blocked"}
 
     devices = jax.devices()[:2]
     for path in ("shardmap", "blocked"):
         t, selected = scaling.run_once(devices, local_n=8, chunk=1, path=path)
         assert t > 0
-        if path == "blocked":
-            assert selected["mevp"].startswith("blocked/")
+        assert selected["mevp"] == ("blocked" if path == "blocked" else "xla")
 
 
 def test_multihost_bench_multi_device_path_small():

@@ -2,7 +2,7 @@
 
 Ports the reference test cases from ``core/test/Configurator_test.cpp``,
 ``core/test/CommandLineParser_test.cpp`` and
-``core/test/ConfiguredModule_test.cpp`` to the TPU framework's config stack.
+``core/test/ConfiguredModule_test.cpp`` to this framework's config stack.
 """
 
 import pytest

@@ -54,47 +54,3 @@ def test_coupled_model_with_high_order_dynamics():
     assert float(jnp.max(jnp.abs(out.velocity.u.v))) > 0.0
     cice = np.asarray(out.cice[0])
     assert np.all(cice >= 0.0) and np.all(cice <= 1.0 + 1e-10)
-
-
-def test_ho_tiled_transport_matches_staged_path():
-    """Coupled HO model with the tiled transport kernel (precomputed CG2
-    quadrature velocity riding the kernel as constant planes) == staged."""
-    import jax
-    import numpy as np
-    from nextsimdg_tpu.coupled import CoupledModel
-    from nextsimdg_tpu.dynamics import RectMesh
-    from nextsimdg_tpu.dynamics.mevp import DynamicsForcing
-    from nextsimdg_tpu.modules import ModuleRegistry
-
-    ModuleRegistry.get_loader().set_implementation(
-        "Nextsim::IDynamics", "Nextsim::MEVPHighOrder"
-    )
-    n = 16
-    mesh = RectMesh(nx=n, ny=n, dx=512e3 / n, dy=512e3 / n)
-    dtype = jnp.float64
-    full = lambda v: jnp.full((n, n), v, dtype)
-    df = DynamicsForcing(
-        u_atm=full(10.0), v_atm=full(3.0), u_ocean=full(0.02), v_ocean=full(0.0)
-    )
-    models = {
-        "staged": CoupledModel(mesh, degree=1, n_subcycles=15,
-                               transport_backend="xla"),
-        "tiled": CoupledModel(mesh, degree=1, n_subcycles=15,
-                              transport_backend="tiled-interpret"),
-    }
-    assert models["tiled"].is_high_order
-    assert models["tiled"]._tiled_transport_mode() == "interpret"
-
-    results = {}
-    for name, model in models.items():
-        state = model.initial_state(hice0=1.2, cice0=0.9, hsnow0=0.1, dtype=dtype)
-        for _ in range(2):
-            state = model.step(state, None, df, dt=600.0, do_thermo=False)
-        results[name] = state
-
-    for a, b in zip(
-        jax.tree.leaves(results["staged"]), jax.tree.leaves(results["tiled"])
-    ):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-12, atol=1e-13
-        )

@@ -16,7 +16,7 @@ def write_cfg(tmp_path, forcing="constant", extra=""):
     cfg.write_text(
         "[model]\n"
         "start = 0\nstop = 1800\ntime_step = 600\n"
-        "diagnostics_file = diag.h5\ndiagnostics_period = 1\n"
+        "diagnostics_file = diag.npz\ndiagnostics_period = 1\n"
         "checkpoint_period = 2\ncheckpoint_pattern = chk.{step}.chk\n"
         "[dynamics]\n"
         "nx = 16\nny = 16\ndx = 32000.0\ndy = 32000.0\n"
@@ -33,7 +33,7 @@ def test_coupled_cli_constant_forcing(tmp_path, monkeypatch):
     assert os.path.exists("coupled_restart.chk")
     assert load_time("coupled_restart.chk") == 1800.0
     assert os.path.exists("chk.2.chk")
-    diag = read_diagnostics("diag.h5")
+    diag = read_diagnostics("diag.npz")
     assert diag["time"].tolist() == [600.0, 1200.0, 1800.0]
     assert np.all(np.isfinite(diag["hice"]))
     # Resume from the final checkpoint.
@@ -177,7 +177,7 @@ def test_coupled_cli_shardmap_matches_single(tmp_path, monkeypatch):
         tmp_path,
         extra=(
             "[parallel]\nmode = shardmap\nmesh_shape = 4x2\n"
-            "mevp_backend = blocked-interpret\nmevp_block_halo = 4\n"
+            "mevp_backend = blocked\nmevp_block_halo = 4\n"
         ),
     )
     assert run_coupled(["prog", "--config-file", cfg]) == 0
@@ -199,7 +199,7 @@ def test_coupled_cli_shardmap_checkpoint_resume_roundtrip(tmp_path, monkeypatch)
     monkeypatch.chdir(tmp_path)
     parallel = (
         "[parallel]\nmode = shardmap\nmesh_shape = 4x2\n"
-        "mevp_backend = blocked-interpret\nmevp_block_halo = 4\n"
+        "mevp_backend = blocked\nmevp_block_halo = 4\n"
     )
 
     from nextsimdg_tpu.config import Configurator
@@ -216,7 +216,7 @@ def test_coupled_cli_shardmap_checkpoint_resume_roundtrip(tmp_path, monkeypatch)
     cfg = tmp_path / "long.cfg"
     cfg.write_text(
         "[model]\nstart = 0\nstop = 3000\ntime_step = 600\n"
-        "diagnostics_file = diag_long.h5\ndiagnostics_period = 5\n"
+        "diagnostics_file = diag_long.npz\ndiagnostics_period = 5\n"
         "checkpoint_period = 0\n"
         "[dynamics]\nnx = 16\nny = 16\ndx = 32000.0\ndy = 32000.0\n"
         "degree = 1\nsubcycles = 10\nthermo = true\n"
@@ -244,7 +244,7 @@ def test_coupled_cli_shardmap_checkpoint_resume_roundtrip(tmp_path, monkeypatch)
     cfg.write_text(
         "[model]\nstart = 1200\nstop = 3000\ntime_step = 600\n"
         "init_file = chk.2.chk\n"
-        "diagnostics_file = diag_res.h5\ndiagnostics_period = 5\n"
+        "diagnostics_file = diag_res.npz\ndiagnostics_period = 5\n"
         "checkpoint_period = 0\n"
         "[dynamics]\nnx = 16\nny = 16\ndx = 32000.0\ndy = 32000.0\n"
         "degree = 1\nsubcycles = 10\nthermo = true\n"
@@ -274,7 +274,7 @@ def test_coupled_cli_full_ring_auto_periodic(tmp_path, monkeypatch):
             "geometry = spherical\n"
             "lat0 = 60.0\nlat1 = 75.0\nlon0 = 0.0\nlon1 = 360.0\n"
             "[parallel]\nmode = shardmap\nmesh_shape = 4x2\n"
-            "mevp_backend = blocked-interpret\nmevp_block_halo = 4\n"
+            "mevp_backend = blocked\nmevp_block_halo = 4\n"
         ),
     )
     assert run_coupled(["prog", "--config-file", cfg]) == 0
@@ -393,7 +393,7 @@ def test_coupled_cli_health_retry_halved_recovers(tmp_path, monkeypatch):
     assert counts["half"] == 2
     assert counts["full"] == 3  # steps 1, 2(poisoned), 3
     # Cadence survives recovery: full diagnostic series, all finite.
-    diag = read_diagnostics("diag.h5")
+    diag = read_diagnostics("diag.npz")
     assert diag["time"].tolist() == [600.0, 1200.0, 1800.0]
     assert np.all(np.isfinite(diag["hice"]))
     assert os.path.exists("chk.2.chk")

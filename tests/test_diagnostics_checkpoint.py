@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from nextsimdg_tpu.io.coupled_restart import (
     load_coupled_state,
@@ -13,7 +14,7 @@ from nextsimdg_tpu.io.diagnostics import DiagnosticWriter, read_diagnostics
 
 
 def test_diagnostic_writer_appends_time_slices(tmp_path):
-    path = str(tmp_path / "diag.h5")
+    path = str(tmp_path / "diag.npz")
     with DiagnosticWriter(path, ("hice", "cice")) as writer:
         for step in range(3):
             writer.write(
@@ -74,3 +75,64 @@ def test_coupled_checkpoint_roundtrip_high_order(tmp_path):
     resumed = model.step(restored, pf, df, dt=600.0)
     for a, b in zip(jax.tree.leaves(direct), jax.tree.leaves(resumed)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-12, atol=1e-14)
+
+
+def test_diagnostic_writer_truncates_and_keeps_dtype(tmp_path):
+    """A new writer on an existing path starts a fresh series, and f32
+    fields stay f32 on disk."""
+    path = str(tmp_path / "diag.npz")
+    with DiagnosticWriter(path, ("hice",)) as writer:
+        for step in range(2):
+            writer.write(600.0 * step, {"hice": np.zeros((3, 3))})
+    with DiagnosticWriter(path, ("hice",)) as writer:
+        writer.write(0.0, {"hice": np.ones((3, 3), np.float32)})
+    data = read_diagnostics(path)
+    assert data["time"].tolist() == [0.0]
+    assert data["hice"].dtype == np.float32 and data["hice"].shape == (1, 3, 3)
+
+
+def test_coupled_checkpoint_keeps_its_name_and_checks_its_type(tmp_path):
+    """np.savez would append '.npz' to a bare path; the checkpoint keeps
+    the caller's name, and a foreign archive is refused."""
+    from tests.test_coupled import build_model
+
+    model, state, _, _ = build_model(n=8, n_sub=2)
+    path = tmp_path / "coupled.chk"
+    save_coupled_state(str(path), state, time=0.0)
+    assert path.exists() and not (tmp_path / "coupled.chk.npz").exists()
+
+    foreign = tmp_path / "other.chk"
+    with open(foreign, "wb") as handle:
+        np.savez(handle, **{"structure/type": np.array("devgrid")})
+    with pytest.raises(ValueError, match="not a coupled_dg checkpoint"):
+        load_coupled_state(str(foreign))
+
+
+def _read_restart(path):
+    from nextsimdg_tpu.io.restart import read_restart
+
+    read_restart(path)
+
+
+def _forcing_provider(path):
+    from nextsimdg_tpu.io.forcing_file import ForcingProvider
+
+    ForcingProvider(path)
+
+
+def _era5(path):
+    from nextsimdg_tpu.io.era5 import ERA5Dataset
+
+    ERA5Dataset(path)
+
+
+
+@pytest.mark.parametrize("reader", [_read_restart, _forcing_provider, _era5])
+def test_hdf5_readers_name_the_missing_package(monkeypatch, tmp_path, reader):
+    """h5py is optional: the readers that need it import it on first use
+    and, without it, say which package is missing."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ModuleNotFoundError, match="h5py"):
+        reader(str(tmp_path / "missing.nc"))

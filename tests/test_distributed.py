@@ -18,7 +18,7 @@ def test_initialize_noop_when_env_autodetect_fails(monkeypatch):
 
 
 def test_initialize_raises_on_explicit_coordinates(monkeypatch):
-    """A configured pod launch must fail LOUDLY, not degrade to 1 host."""
+    """A configured multi-host launch must fail LOUDLY, not degrade to 1 host."""
     import jax
 
     from nextsimdg_tpu.parallel import distributed

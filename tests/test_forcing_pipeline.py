@@ -1,6 +1,7 @@
 """Native async forcing engine tests (builds the C++ library on demand)."""
 
 import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -95,3 +96,29 @@ def test_producer_runs_ahead_of_consumer():
     with ForcingPipeline.constant(4, 4, {"a": 1.0}, n_buffers=4) as pipe:
         steps = [pipe.next_fields()["_step"] for _ in range(10)]
     assert steps == list(range(10))
+
+
+@pytest.mark.parametrize(
+    "failure,message",
+    [
+        (FileNotFoundError("make"), "needs make and g"),
+        (
+            subprocess.CalledProcessError(
+                2, ["make"], output="", stderr="g++: error: boom"
+            ),
+            "g\\+\\+: error: boom",
+        ),
+    ],
+)
+def test_native_build_fails_loudly(monkeypatch, tmp_path, failure, message):
+    """A missing toolchain or a failed compile raises with the reason."""
+    import nextsimdg_tpu.io.forcing_pipeline as fp
+
+    def broken_make(*args, **kwargs):
+        raise failure
+
+    monkeypatch.setattr(fp, "_NATIVE_DIR", str(tmp_path))
+    (tmp_path / "forcing_engine.cpp").write_text("")
+    monkeypatch.setattr(fp.subprocess, "run", broken_make)
+    with pytest.raises(RuntimeError, match=message):
+        fp._build_library()

@@ -2,7 +2,7 @@
 
 The reference has no failure detection (SURVEY §5; the only resilience
 is Model.cpp:40-53's best-effort restart write) — these tests cover the
-production-side machinery the TPU build adds on top.
+production-side machinery this framework adds on top.
 """
 
 from __future__ import annotations
@@ -129,8 +129,8 @@ def test_finite_probe_is_cheap_scalar_fetch():
 
 
 def test_health_abort_in_shardmap_mode(tmp_path, monkeypatch):
-    """The probe runs jitted over the sharded global state (the pod
-    situation: shards live on 8 mesh devices) and the post-mortem path
+    """The probe runs jitted over the sharded global state (the
+    multi-device situation: shards live on 8 mesh devices) and the post-mortem path
     still writes one global checkpoint."""
     import os
 
@@ -147,7 +147,7 @@ def test_health_abort_in_shardmap_mode(tmp_path, monkeypatch):
         tmp_path,
         extra=(
             "[parallel]\nmode = shardmap\nmesh_shape = 4x2\n"
-            "mevp_backend = blocked-interpret\nmevp_block_halo = 4\n"
+            "mevp_backend = blocked\nmevp_block_halo = 4\n"
         ),
     )
     cfg2 = tmp_path / "health.cfg"

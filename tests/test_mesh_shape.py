@@ -1,14 +1,13 @@
 """Grid-aware device-mesh factorization (parallel.pick_mesh_shape).
 
-Backed by the round-5 aspect-ratio measurement (docs/performance.md):
-the full-row tiled mEVP kernels pay real halo-redundancy cost when the
-LOCAL lane extent is wide, so the auto mesh shape must prefer
-factorizations that keep per-device lane extents modest.
+The auto mesh shape minimizes the local block's halo perimeter over the
+factorizations that divide the grid, splitting the leading axis on ties.
 """
 
 from __future__ import annotations
 
 import jax
+import pytest
 
 from nextsimdg_tpu.parallel import make_spatial_mesh, pick_mesh_shape
 
@@ -21,31 +20,28 @@ def local_shape(n, nx, ny):
 
 
 def test_wide_lane_grid_splits_lanes_first():
-    # 1024 x 16384: splitting x would leave 16384-lane local blocks whose
-    # tiled configs degrade (tile_x 8-32); the scorer must split y.
-    lnx, lny = local_shape(8, 1024, 16384)
-    assert lny <= 2048
+    # 1024 x 16384: (1, 8) -> 1024 x 2048 has the smallest perimeter.
+    assert local_shape(8, 1024, 16384) == (1024, 2048)
 
 
 def test_tall_grid_splits_sublanes_first():
-    # The transpose: local lane extent is already modest; splitting x
-    # keeps it that way.
-    lnx, lny = local_shape(8, 16384, 1024)
-    assert lny <= 1024 and lnx <= 2048
+    # The transpose: (8, 1) -> 2048 x 1024.
+    assert local_shape(8, 16384, 1024) == (2048, 1024)
 
 
 def test_square_16m_grid_keeps_local_lanes_in_the_good_band():
-    # 4096^2 over 8 devices: both (2,4) and (4,2) land in the measured
-    # 1.06-1.13x tile-redundancy band; either is acceptable, 4096-lane
-    # locals are not.
-    lnx, lny = local_shape(8, 4096, 4096)
-    assert max(lnx, lny) <= 2048
+    # 4096^2 over 8 devices: (2,4) and (4,2) tie on perimeter; the tie
+    # splits the leading axis further. 4096-wide locals never win.
+    assert local_shape(8, 4096, 4096) == (1024, 2048)
+    assert pick_mesh_shape(4, 4096, 4096) == (2, 2)
 
 
 def test_two_devices_split_the_lane_axis():
-    # 2 devices on 4096^2 (the measured example): (1,2) local 4096x2048
-    # beats (2,1) local 2048x4096.
-    assert pick_mesh_shape(2, 4096, 4096) == (1, 2)
+    # A lane-wide grid: (1, 2) -> 1024 x 2048 beats (2, 1) -> 512 x 4096.
+    assert pick_mesh_shape(2, 1024, 4096) == (1, 2)
+    # On 4096^2 (1,2) and (2,1) have equal perimeters; the tie splits X,
+    # whose halo strips are contiguous rows.
+    assert pick_mesh_shape(2, 4096, 4096) == (2, 1)
 
 
 def test_indivisible_grid_falls_back_to_squarest():
@@ -93,7 +89,7 @@ def test_coupled_cli_shardmap_auto_shape_matches_single(tmp_path, monkeypatch):
         tmp_path,
         extra=(
             "[parallel]\nmode = shardmap\n"  # mesh_shape intentionally unset
-            "mevp_backend = blocked-interpret\nmevp_block_halo = 4\n"
+            "mevp_backend = blocked\nmevp_block_halo = 4\n"
         ),
     )
     assert run_coupled(["prog", "--config-file", cfg]) == 0
@@ -104,3 +100,18 @@ def test_coupled_cli_shardmap_auto_shape_matches_single(tmp_path, monkeypatch):
         np.testing.assert_allclose(
             np.asarray(x), np.asarray(y), rtol=2e-5, atol=1e-7
         )
+
+
+@pytest.mark.parametrize(
+    "n,nx,ny",
+    [(4, 4096, 4096), (4, 2048, 8192), (8, 1024, 3072), (6, 960, 640)],
+)
+def test_pick_minimizes_the_halo_perimeter(n, nx, ny):
+    """No divisible factorization has a smaller local-block perimeter."""
+    px, py = pick_mesh_shape(n, nx, ny)
+    best = min(
+        nx // a + ny // (n // a)
+        for a in range(1, n + 1)
+        if n % a == 0 and nx % a == 0 and ny % (n // a) == 0
+    )
+    assert nx // px + ny // py == best

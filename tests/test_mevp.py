@@ -8,6 +8,7 @@ wind-driven box benchmark (BASELINE.json config 3).
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from nextsimdg_tpu.dynamics import MEVPParams, MEVPSolver, RectMesh, VelocityState
 from nextsimdg_tpu.dynamics.mevp import DynamicsForcing, cell_to_node
@@ -151,16 +152,29 @@ def test_mevp_subcycling_converges_toward_vp_fixed_point():
 
 
 def test_pick_block_halo_alignment():
-    """Alignment-aware auto halo (round 4): fused-regime sizes keep the
-    default; tiled-regime sizes get a 128-lane-aligning width; tiny
-    blocks are capped by their extents."""
+    """The auto exchange halo is the fixed default, clamped so that the
+    h-wide exchange strips fit inside the local block."""
     from nextsimdg_tpu.dynamics.mevp import pick_block_halo
 
-    assert pick_block_halo(256, 256) == 16   # fused single-block regime
-    assert pick_block_halo(1024, 1024) == 64  # (1024+128) % 128 == 0
-    assert pick_block_halo(2048, 2048) == 64
-    assert (1024 + 2 * 64) % 128 == 0
-    assert pick_block_halo(16, 8) <= 8       # capped by the block
+    assert pick_block_halo(256, 256) == 16
+    assert pick_block_halo(1024, 1024) == 16
+    assert pick_block_halo(16, 8) == 8   # capped by the block
+    assert pick_block_halo(3, 40) == 3
+
+
+@pytest.mark.parametrize(
+    "backend", ["pallas", "pallas-interpret", "rdma", "banded", "tiled"]
+)
+def test_unknown_backend_raises(backend):
+    """Backend strings outside BACKENDS raise ValueError naming the
+    accepted ones, for both discretizations."""
+    from nextsimdg_tpu.dynamics.mevp import BACKENDS
+    from nextsimdg_tpu.dynamics.mevp_ho import MEVPSolverHO
+
+    mesh = RectMesh(nx=8, ny=8, dx=1.0, dy=1.0)
+    for cls in (MEVPSolver, MEVPSolverHO):
+        with pytest.raises(ValueError, match="accepted: " + ", ".join(BACKENDS)):
+            cls(mesh, MEVPParams(), backend=backend)
 
 
 def test_adaptive_alpha_equivalent_to_fixed_when_clamped():

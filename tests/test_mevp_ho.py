@@ -183,374 +183,3 @@ def test_ho_coupled_runs_on_spherical_mesh():
         assert np.all(np.isfinite(np.asarray(leaf)))
     assert state.hice.dtype == jnp.float32  # no silent f64 promotion
     assert float(jnp.max(jnp.abs(state.velocity.u.v))) > 0.0
-
-
-def test_ho_pallas_interpret_matches_xla_path():
-    """Fused HO kernel (all 46 planes VMEM-resident) == XLA path."""
-    mesh, h, a, forcing = _box(n=16)
-    xla = MEVPSolverHO(mesh, MEVPParams(use_coriolis=False), backend="xla")
-    fused = MEVPSolverHO(
-        mesh, MEVPParams(use_coriolis=False), backend="pallas-interpret"
-    )
-    mask = xla.boundary_mask(dtype=jnp.float64)
-    state = HOVelocityState.zeros(mesh.nx, mesh.ny, dtype=jnp.float64)
-
-    out_xla = xla.step(state, h, a, forcing, mask, dt=600.0, n_subcycles=30)
-    out_fused = fused.step(state, h, a, forcing, mask, dt=600.0, n_subcycles=30)
-
-    import jax
-    for name, ax, bx in zip(
-        ("u", "v", "s11", "s22", "s12"),
-        jax.tree.leaves(
-            (out_xla.u, out_xla.v, out_xla.s11, out_xla.s22, out_xla.s12)
-        ),
-        jax.tree.leaves(
-            (out_fused.u, out_fused.v, out_fused.s11, out_fused.s22, out_fused.s12)
-        ),
-    ):
-        np.testing.assert_allclose(
-            np.asarray(bx), np.asarray(ax), rtol=1e-12, atol=1e-13
-        )
-
-
-def test_ho_tiled_interpret_matches_xla_path():
-    """Ghost-zone tiled HO kernel (full-row tiles, 17 state + 29 const
-    planes VMEM-resident per round) == XLA path."""
-    mesh, h, a, forcing = _box(n=16)
-    xla = MEVPSolverHO(mesh, MEVPParams(use_coriolis=False), backend="xla")
-    tiled = MEVPSolverHO(
-        mesh, MEVPParams(use_coriolis=False), backend="pallas-tiled-interpret"
-    )
-    mask = xla.boundary_mask(dtype=jnp.float64)
-    state = HOVelocityState.zeros(mesh.nx, mesh.ny, dtype=jnp.float64)
-
-    # 10 subcycles = 2 rounds of 4 + 1 round of 2 at halo_x=4.
-    out_xla = xla.step(state, h, a, forcing, mask, dt=600.0, n_subcycles=10)
-    out_tiled = tiled.step(state, h, a, forcing, mask, dt=600.0, n_subcycles=10)
-
-    import jax
-    for ax, bx in zip(
-        jax.tree.leaves(
-            (out_xla.u, out_xla.v, out_xla.s11, out_xla.s22, out_xla.s12)
-        ),
-        jax.tree.leaves(
-            (out_tiled.u, out_tiled.v, out_tiled.s11, out_tiled.s22, out_tiled.s12)
-        ),
-    ):
-        np.testing.assert_allclose(
-            np.asarray(bx), np.asarray(ax), rtol=1e-12, atol=1e-13
-        )
-
-
-def test_ho_tiled_cross_prefetch_matches_xla_path():
-    """Fused ping-pong HO tiled kernel on enough tiles (n=32, tile_x=8:
-    n_ti=4) to statically enable BOTH cross-round input prefetch and the
-    one-tile-deferred interior write-back, plus a remainder round
-    (10 subcycles = rounds of 4+4+2 at halo_x=4) — validates the
-    slot/retire/drain index arithmetic of the overlapped fast path."""
-    mesh, h, a, forcing = _box(n=32)
-    xla = MEVPSolverHO(mesh, MEVPParams(use_coriolis=False), backend="xla")
-    tiled = MEVPSolverHO(
-        mesh, MEVPParams(use_coriolis=False), backend="pallas-tiled-interpret"
-    )
-    assert mesh.nx // 8 >= 4  # the cross_prefetch/defer_out threshold
-    mask = xla.boundary_mask(dtype=jnp.float64)
-    state = HOVelocityState.zeros(mesh.nx, mesh.ny, dtype=jnp.float64)
-    out_xla = xla.step(state, h, a, forcing, mask, dt=600.0, n_subcycles=10)
-    out_tiled = tiled.step(state, h, a, forcing, mask, dt=600.0, n_subcycles=10)
-
-    import jax
-    for ax, bx in zip(
-        jax.tree.leaves(
-            (out_xla.u, out_xla.v, out_xla.s11, out_xla.s22, out_xla.s12)
-        ),
-        jax.tree.leaves(
-            (out_tiled.u, out_tiled.v, out_tiled.s11, out_tiled.s22, out_tiled.s12)
-        ),
-    ):
-        np.testing.assert_allclose(
-            np.asarray(bx), np.asarray(ax), rtol=1e-12, atol=1e-13
-        )
-
-
-def test_ho_tiled_config_covers_midsize_and_pins_production():
-    """ho_tiled_config: available at every closed size above the
-    single-block kernel's ~371^2 limit (the 1M auto gate is gone), and
-    the production 1024^2 config stays (128, 8) — that exact tile/halo
-    pair is what the 120 MB scoped-VMEM budget of the fused ping-pong
-    kernel was validated against on hardware (docs/performance.md)."""
-    from nextsimdg_tpu.dynamics.kernels.mevp_ho_tiled import ho_tiled_config
-
-    for n in (384, 512, 768, 1024, 2048):
-        for n_consts in (29, 33):  # uniform / +metric planes
-            cfg = ho_tiled_config(n, n, n_consts=n_consts)
-            assert cfg is not None, (n, n_consts)
-            tile_x, halo_x = cfg
-            assert n % tile_x == 0
-            assert halo_x % 8 == 0 and (tile_x + 2 * halo_x) % 8 == 0
-    assert ho_tiled_config(1024, 1024) == (128, 8)
-    # Non-aligned extents ride inert zero padding (400 -> 448 x 512) and
-    # must yield a proper tile width, not the degenerate tile_x = 8 that
-    # raw 400 rows would force.
-    tile_x, halo_x = ho_tiled_config(400, 400)
-    assert 448 % tile_x == 0 and tile_x >= 64
-    # A blocked-exchange widened local block (never tile-aligned).
-    assert ho_tiled_config(528, 1040) is not None
-
-
-def test_ho_tiled_padded_extents_match_xla_path():
-    """Non-tile-aligned grid (20x20 -> padded 64x128 inside the kernel):
-    the inert zero-pad strips must reproduce the implicit-wall closed
-    boundary exactly — pins the padding argument the blocked exchange's
-    widened local blocks rely on."""
-    mesh, h, a, forcing = _box(n=20)
-    xla = MEVPSolverHO(mesh, MEVPParams(use_coriolis=False), backend="xla")
-    tiled = MEVPSolverHO(
-        mesh, MEVPParams(use_coriolis=False), backend="pallas-tiled-interpret"
-    )
-    mask = xla.boundary_mask(dtype=jnp.float64)
-    state = HOVelocityState.zeros(mesh.nx, mesh.ny, dtype=jnp.float64)
-    out_xla = xla.step(state, h, a, forcing, mask, dt=600.0, n_subcycles=6)
-    out_tiled = tiled.step(state, h, a, forcing, mask, dt=600.0, n_subcycles=6)
-
-    import jax
-    for ax, bx in zip(
-        jax.tree.leaves(
-            (out_xla.u, out_xla.v, out_xla.s11, out_xla.s22, out_xla.s12)
-        ),
-        jax.tree.leaves(
-            (out_tiled.u, out_tiled.v, out_tiled.s11, out_tiled.s22, out_tiled.s12)
-        ),
-    ):
-        np.testing.assert_allclose(
-            np.asarray(bx), np.asarray(ax), rtol=1e-12, atol=1e-13
-        )
-
-
-def test_ho_tiled_periodic_matches_xla_path():
-    """Periodic domains on the HO tiled kernel (round 4): x wraps via
-    modular-offset state-strip DMAs + wrap-padded consts, y wraps
-    in-block (full-row tiles). 64x128 = the smallest pad-free extents
-    (the kernel refuses a wrap through inert padding)."""
-    import jax
-
-    nx, ny = 64, 128
-    mesh = RectMesh(
-        nx=nx, ny=ny, dx=512e3 / nx, dy=512e3 / ny,
-        periodic_x=True, periodic_y=True,
-    )
-    dtype = jnp.float64
-    h = jnp.full((nx, ny), 2.0, dtype)
-    a = jnp.full((nx, ny), 0.95, dtype)
-    # x-varying wind so the wrap seam actually carries signal.
-    gx = jnp.asarray(
-        np.sin(np.linspace(0, 2 * np.pi, nx, endpoint=False))[:, None]
-        * np.ones((1, ny)) * 8.0 + 8.0
-    )
-    wind = HOField(v=gx, b=gx, l=gx, c=gx)
-    const = lambda v: HOField(
-        v=jnp.full((nx, ny), v, dtype), b=jnp.full((nx, ny), v, dtype),
-        l=jnp.full((nx, ny), v, dtype), c=jnp.full((nx, ny), v, dtype),
-    )
-    forcing = HODynamicsForcing(
-        u_atm=wind, v_atm=const(3.0), u_ocean=const(0.02), v_ocean=const(0.0)
-    )
-    state = HOVelocityState.zeros(nx, ny, dtype)
-
-    xla = MEVPSolverHO(mesh, MEVPParams(), backend="xla")
-    tiled = MEVPSolverHO(mesh, MEVPParams(), backend="pallas-tiled-interpret")
-    mask = xla.boundary_mask(dtype)
-
-    out_xla = xla.step(state, h, a, forcing, mask, dt=600.0, n_subcycles=10)
-    out_tiled = tiled.step(state, h, a, forcing, mask, dt=600.0, n_subcycles=10)
-
-    for ax, bx in zip(
-        jax.tree.leaves(
-            (out_xla.u, out_xla.v, out_xla.s11, out_xla.s22, out_xla.s12)
-        ),
-        jax.tree.leaves(
-            (out_tiled.u, out_tiled.v, out_tiled.s11, out_tiled.s22, out_tiled.s12)
-        ),
-    ):
-        np.testing.assert_allclose(
-            np.asarray(bx), np.asarray(ax), rtol=1e-12, atol=1e-13
-        )
-    # The wrap carried real signal: seam-row velocities are nonzero.
-    assert float(jnp.max(jnp.abs(out_xla.u.v[0]))) > 1e-6
-
-
-def _banded_case(mesh, backend, band, n_subcycles=20):
-    import jax
-
-    n = mesh.nx
-    dtype = jnp.float64
-    full = lambda v: jnp.full((n, mesh.ny), v, dtype)
-    const = lambda v: HOField(v=full(v), b=full(v), l=full(v), c=full(v))
-    forcing = HODynamicsForcing(
-        u_atm=const(10.0), v_atm=const(3.0),
-        u_ocean=const(0.02), v_ocean=const(0.0),
-    )
-    h, a = full(2.0), full(0.95)
-    state = HOVelocityState.zeros(mesh.nx, mesh.ny, dtype)
-    ref = MEVPSolverHO(mesh, MEVPParams(), backend="xla")
-    expected = ref.step(
-        state, h, a, forcing, ref.boundary_mask(dtype), 600.0, n_subcycles
-    )
-    sol = MEVPSolverHO(mesh, MEVPParams(), backend=backend, band=band)
-    assert sol._kernel_choice() == "banded"
-    got = sol.step(
-        state, h, a, forcing, sol.boundary_mask(dtype), 600.0, n_subcycles
-    )
-    return jax.tree.leaves(expected), jax.tree.leaves(got)
-
-
-def test_ho_banded_matches_xla_path():
-    """Single-device y-banding (config-5 wide-domain path: lane bands +
-    ghost columns sliced from neighbors, blocked-exchange invalidation
-    argument) must be EXACT vs the unbanded XLA path — closed, periodic
-    (the pad wraps) and spherical (metric rides the sliced consts)."""
-    from nextsimdg_tpu.dynamics.mesh import SphericalMesh
-
-    n = 32
-    for mesh in (
-        RectMesh(nx=n, ny=n, dx=8e3, dy=8e3),
-        RectMesh(nx=n, ny=n, dx=8e3, dy=8e3, periodic_x=True, periodic_y=True),
-        SphericalMesh(nx=n, ny=n, lon0=-20.0, lon1=20.0, lat0=60.0, lat1=80.0),
-    ):
-        # band_w=16, band_h=4: 2 bands, 5 rounds of 4 over 20 subcycles.
-        for x, y in zip(*_banded_case(mesh, "banded", (16, 4))):
-            np.testing.assert_allclose(
-                np.asarray(y), np.asarray(x), rtol=0, atol=0,
-                err_msg=f"{type(mesh).__name__} periodic={mesh.periodic_x}",
-            )
-
-
-def test_ho_banded_interpret_fused_inner_matches_xla_path():
-    """banded-interpret runs the fused HO kernel per band (interpret)."""
-    mesh = RectMesh(nx=32, ny=32, dx=8e3, dy=8e3)
-    for x, y in zip(*_banded_case(mesh, "banded-interpret", (16, 4), 11)):
-        np.testing.assert_allclose(
-            np.asarray(y), np.asarray(x), rtol=1e-12, atol=1e-13
-        )
-
-
-def test_ho_banded_config_selects_config5_shape():
-    """At the 16M config-5 shape the auto rules reject the degenerate
-    2x-redundancy tile and select banding (1024-wide bands, h=64)."""
-    from nextsimdg_tpu.dynamics.kernels.mevp_ho_tiled import ho_tiled_config
-    from nextsimdg_tpu.dynamics.mevp_ho import (
-        _ho_tiled_reasonable, ho_banded_config,
-    )
-
-    cfg = ho_tiled_config(4096, 4096, n_consts=29)
-    assert cfg is not None and not _ho_tiled_reasonable(cfg)
-    band = ho_banded_config(4096, 4096, n_consts=29)
-    assert band is not None
-    band_w, band_h = band
-    ext = band_w + 2 * band_h
-    assert 4096 % band_w == 0
-    inner = ho_tiled_config(4096, ext, n_consts=29)
-    assert inner is not None and _ho_tiled_reasonable(inner)
-    tile_x, halo_x = inner
-    # Total compute redundancy well under the rejected unbanded 2.0.
-    assert (ext / band_w) * ((tile_x + 2 * halo_x) / tile_x) <= 1.5
-    # Small grids never band (plain tiled/fused handles them).
-    assert ho_banded_config(256, 256, n_consts=29) is None
-
-
-def test_ho_blocked_with_banded_inner_matches_single_device(monkeypatch):
-    """The blocked shard_map exchange with a BANDED inner engine (the
-    config-5 16M spmd composition: widened local block too wide to tile,
-    y-banded inside) must stay exact vs the single-device XLA path. The
-    engine selection is TPU-gated, so force it here; the banded solver's
-    own inner engine degrades to XLA on CPU — the composition logic
-    (widen -> pad -> band -> stitch -> crop) is what this pins."""
-    import jax
-    from jax.sharding import PartitionSpec as P
-
-    from nextsimdg_tpu.dynamics.mevp_ho import MEVPSolverHO
-    from nextsimdg_tpu.parallel import make_spatial_mesh
-
-    n = 32
-    dtype = jnp.float64
-    mesh = RectMesh(nx=n, ny=n, dx=8e3, dy=8e3)
-    full = lambda v: jnp.full((n, n), v, dtype)
-    const = lambda v: HOField(v=full(v), b=full(v), l=full(v), c=full(v))
-    df = HODynamicsForcing(
-        u_atm=const(10.0), v_atm=const(3.0),
-        u_ocean=const(0.02), v_ocean=const(0.0),
-    )
-    h, a = full(2.0), full(0.95)
-    state = HOVelocityState.zeros(n, n, dtype)
-
-    ref = MEVPSolverHO(mesh, MEVPParams(), backend="xla")
-    expected = ref.step(state, h, a, df, ref.boundary_mask(dtype), 600.0, 20)
-
-    device_mesh = make_spatial_mesh((2, 2))
-    local = RectMesh(nx=n // 2, ny=n // 2, dx=8e3, dy=8e3)
-    solver = MEVPSolverHO(
-        mesh=local, params=MEVPParams(), backend="blocked",
-        spmd=("X", "Y"), block_halo=8,
-    )
-    monkeypatch.setattr(
-        solver, "_blocked_inner_engine", lambda nxw, nyw: "banded"
-    )
-    # Widened block is (32, 32); band it 2x16 with 4-wide ghosts.
-    monkeypatch.setattr(
-        "nextsimdg_tpu.dynamics.mevp_ho.ho_banded_config",
-        lambda nx, ny, n_consts=29: (16, 4),
-    )
-
-    def spec_of(leaf):
-        nd = jnp.ndim(leaf)
-        return P(*([None] * (nd - 2) + ["X", "Y"]))
-
-    def step_local(s, hh, aa, d):
-        mask = solver.boundary_mask(dtype)
-        return solver.step(s, hh, aa, d, mask, 600.0, 20)
-
-    got = jax.jit(
-        jax.shard_map(
-            step_local,
-            mesh=device_mesh,
-            in_specs=(
-                jax.tree.map(spec_of, state),
-                P("X", "Y"), P("X", "Y"), jax.tree.map(spec_of, df),
-            ),
-            out_specs=jax.tree.map(spec_of, state),
-            check_vma=False,
-        )
-    )(state, h, a, df)
-    for x, y in zip(jax.tree.leaves(expected), jax.tree.leaves(got)):
-        np.testing.assert_allclose(
-            np.asarray(y), np.asarray(x), rtol=1e-12, atol=1e-13
-        )
-
-
-def test_ho_banded_a_weighted_matches_xla_path():
-    """Banded + A-weighted stresses: the 4 extra a_{k} const planes ride
-    the band slicing like every other const."""
-    import jax
-
-    n = 32
-    dtype = jnp.float64
-    mesh = RectMesh(nx=n, ny=n, dx=8e3, dy=8e3)
-    params = MEVPParams(a_weighted_stress=True)
-    full = lambda v: jnp.full((n, n), v, dtype)
-    const = lambda v: HOField(v=full(v), b=full(v), l=full(v), c=full(v))
-    df = HODynamicsForcing(
-        u_atm=const(10.0), v_atm=const(3.0),
-        u_ocean=const(0.02), v_ocean=const(0.0),
-    )
-    h = full(2.0)
-    a = jnp.clip(
-        0.9 + 0.1 * jnp.sin(jnp.arange(n)[:, None] * 0.7)
-        * jnp.cos(jnp.arange(n)[None, :] * 0.3), 0.0, 1.0
-    ).astype(dtype)
-    state = HOVelocityState.zeros(n, n, dtype)
-    ref = MEVPSolverHO(mesh, params, backend="xla")
-    expected = ref.step(state, h, a, df, ref.boundary_mask(dtype), 600.0, 12)
-    sol = MEVPSolverHO(mesh, params, backend="banded", band=(16, 4))
-    got = sol.step(state, h, a, df, sol.boundary_mask(dtype), 600.0, 12)
-    for x, y in zip(jax.tree.leaves(expected), jax.tree.leaves(got)):
-        np.testing.assert_allclose(np.asarray(y), np.asarray(x), rtol=0, atol=0)

@@ -1,4 +1,4 @@
-"""Real multi-process (DCN-path) validation on the CPU backend.
+"""Real multi-process validation on the CPU backend.
 
 These tests spawn ACTUAL separate Python processes, wire them into one
 JAX runtime via ``jax.distributed.initialize`` (coordinator on
@@ -6,8 +6,8 @@ localhost), build a device mesh spanning every process, run the coupled
 model on it, and compare the gathered global result against an
 uninterrupted single-device run. This exercises process-spanning
 collectives, ``jax.make_array_from_callback`` global-array assembly, and
-the pod launch path — none of which the in-process 8-device mesh
-touches (SURVEY.md §2.3/§5: multi-host orchestration over DCN).
+the multi-host launch path — none of which the in-process 8-device mesh
+touches (SURVEY.md §2.3/§5: multi-host orchestration).
 """
 
 import pytest
@@ -46,7 +46,7 @@ def test_two_process_run_matches_single_device():
         assert r["global_devices"] == 4
         for path in paths:
             # The jitted health probe ran on the process-spanning global
-            # state in-worker (the pod case): healthy detected healthy,
+            # state in-worker (the multi-host case): healthy detected healthy,
             # a poisoned copy detected non-finite.
             assert r["paths"][path]["finite_probe"] is True
             assert r["paths"][path]["finite_probe_detects"] is True

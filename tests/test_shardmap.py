@@ -107,9 +107,7 @@ def test_blocked_halo_exchange_matches_per_subcycle():
         ("xla", None),
         ("blocked", 4),
         ("blocked", 7),
-        # Ghost-zone rounds whose local solve runs the fused Pallas kernel
-        # (interpret mode on the CPU mesh): the multi-chip kernel path.
-        ("blocked-interpret", 5),
+        ("blocked", 5),
     ):
         kwargs = {} if halo is None else {"block_halo": halo}
         solver = MEVPSolver(
@@ -203,9 +201,8 @@ def test_blocked_halo_exchange_periodic_matches_per_subcycle():
 
 def test_ho_blocked_halo_exchange_matches_per_subcycle():
     """Higher-order (CG2/dG1) solver under shard_map: the per-subcycle
-    ppermute 'xla' path AND the ghost-zone 'blocked' path (whose widened
-    local solve runs the fused HO Pallas kernel in interpret mode) must
-    reproduce the single-device result exactly."""
+    ppermute 'xla' path AND the ghost-zone 'blocked' path must reproduce
+    the single-device result exactly."""
     from jax.sharding import PartitionSpec as P
 
     from nextsimdg_tpu.dynamics.mevp import MEVPParams
@@ -244,9 +241,7 @@ def test_ho_blocked_halo_exchange_matches_per_subcycle():
         ("xla", None),
         ("blocked", 4),
         ("blocked", 7),
-        # Ghost-zone rounds whose local solve runs the fused HO Pallas
-        # kernel (interpret mode on the CPU mesh): the multi-chip HO path.
-        ("blocked-interpret", 5),
+        ("blocked", 5),
     ):
         kwargs = {} if halo is None else {"block_halo": halo}
         solver = MEVPSolverHO(
@@ -279,7 +274,7 @@ def test_ho_blocked_halo_exchange_matches_per_subcycle():
 def test_shardmap_ho_coupled_step_matches_single_device():
     """Full coupled step with the higher-order dynamics selected, under
     the 8-device mesh (both the per-subcycle 'xla' and the ghost-zone
-    'blocked-interpret' mEVP backends)."""
+    'blocked' mEVP backends)."""
     from nextsimdg_tpu.modules import ModuleRegistry
 
     ModuleRegistry.get_loader().set_implementation(
@@ -292,7 +287,7 @@ def test_shardmap_ho_coupled_step_matches_single_device():
     device_mesh = make_spatial_mesh((4, 2))
     for backend_kwargs in (
         {},
-        {"mevp_backend": "blocked-interpret", "mevp_block_halo": 4},
+        {"mevp_backend": "blocked", "mevp_block_halo": 4},
     ):
         _, sharded_step = build_sharded_coupled_model(
             mesh, device_mesh, degree=1, n_subcycles=10, **backend_kwargs
@@ -305,124 +300,9 @@ def test_shardmap_ho_coupled_step_matches_single_device():
             )
 
 
-def test_shardmap_tiled_transport_matches_staged():
-    """Blocked ghost-zone tiled transport under shard_map (one ppermute
-    pair per (H-1)//rings substeps, the single-chip tiled Pallas kernel on
-    the widened block, interpret mode) == the staged single-device path."""
-    mesh, ref_model, state, pf, df = global_setup(n=16)
-    expected = ref_model.step(state, pf, df, dt=600.0)
-
-    device_mesh = make_spatial_mesh((4, 2))
-    model, sharded_step = build_sharded_coupled_model(
-        mesh, device_mesh, degree=1, n_subcycles=10,
-        transport_backend="tiled-interpret",
-    )
-    assert model._tiled_transport_mode() == "interpret-spmd"
-    got = sharded_step(state, pf, df, 600.0)
-    for a, b in zip(jax.tree.leaves(expected), jax.tree.leaves(got)):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-10, atol=1e-12
-        )
-
-
-def test_shardmap_tiled_transport_ho_matches_staged():
-    """The HO (CG2-sampled QuadVelocity riding the kernel as 24 constant
-    planes) variant of the blocked spmd tiled transport."""
-    from nextsimdg_tpu.modules import ModuleRegistry
-
-    ModuleRegistry.get_loader().set_implementation(
-        "Nextsim::IDynamics", "Nextsim::MEVPHighOrder"
-    )
-    mesh, ref_model, state, pf, df = global_setup(n=16)
-    assert ref_model.is_high_order
-    expected = ref_model.step(state, pf, df, dt=600.0)
-
-    device_mesh = make_spatial_mesh((4, 2))
-    _, sharded_step = build_sharded_coupled_model(
-        mesh, device_mesh, degree=1, n_subcycles=10,
-        transport_backend="tiled-interpret",
-        mevp_backend="blocked-interpret", mevp_block_halo=4,
-    )
-    got = sharded_step(state, pf, df, 600.0)
-    for a, b in zip(jax.tree.leaves(expected), jax.tree.leaves(got)):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-10, atol=1e-12
-        )
-
-
-@pytest.mark.parametrize(
-    "shape,spmd,periodic",
-    [
-        ((4, 1), ("X", None), False),  # 1-D x strips
-        ((1, 4), (None, "Y"), False),  # 1-D y strips (lane dim)
-        ((4, 2), ("X", "Y"), False),   # 2-D + two-phase corner exchange
-        ((2, 2), ("X", "Y"), True),    # periodic wrap rides the ring
-    ],
-)
-def test_rdma_halo_exchange_matches_per_subcycle(shape, spmd, periodic):
-    """backend='rdma-interpret' (in-kernel make_async_remote_copy halo
-    exchange overlapped with the interior pass, simulated by the TPU
-    interpret machinery on the CPU mesh) == the single-device XLA result,
-    exactly — the same ghost-zone invalidation argument as 'blocked'."""
-    from jax.sharding import PartitionSpec as P
-
-    from nextsimdg_tpu.dynamics.mevp import MEVPSolver, MEVPParams, VelocityState
-    from nextsimdg_tpu.parallel import make_spatial_mesh
-
-    n = 32
-    mesh = RectMesh(
-        nx=n, ny=n, dx=512e3 / n, dy=512e3 / n,
-        periodic_x=periodic, periodic_y=periodic,
-    )
-    dtype = jnp.float64
-    full = lambda v: jnp.full((n, n), v, dtype)
-    h, a = full(2.0), full(0.95)
-    df = DynamicsForcing(
-        u_atm=full(10.0), v_atm=full(3.0), u_ocean=full(0.02), v_ocean=full(0.0)
-    )
-    state = VelocityState.zeros(n, n, dtype)
-
-    ref = MEVPSolver(mesh, MEVPParams(), backend="xla")
-    expected = ref.step(state, h, a, df, ref.boundary_mask(dtype), 600.0, 11)
-
-    device_mesh = make_spatial_mesh(shape)
-    px, py = shape
-    local = RectMesh(
-        nx=n // px, ny=n // py, dx=mesh.dx, dy=mesh.dy,
-        periodic_x=periodic, periodic_y=periodic,
-    )
-    spec = P(*spmd)
-    solver = MEVPSolver(
-        local, MEVPParams(), backend="rdma-interpret", spmd=spmd,
-        block_halo=4,  # 11 subcycles = rounds of 4 + 4 + 3
-    )
-
-    def step_local(s, hh, aa, d):
-        mask = solver.boundary_mask(dtype)
-        return solver.step(s, hh, aa, d, mask, 600.0, 11)
-
-    got = jax.jit(
-        jax.shard_map(
-            step_local,
-            mesh=device_mesh,
-            in_specs=(
-                jax.tree.map(lambda _: spec, state),
-                spec, spec, jax.tree.map(lambda _: spec, df),
-            ),
-            out_specs=jax.tree.map(lambda _: spec, state),
-            check_vma=False,
-        )
-    )(state, h, a, df)
-    for x, y in zip(jax.tree.leaves(expected), jax.tree.leaves(got)):
-        np.testing.assert_allclose(
-            np.asarray(x), np.asarray(y), rtol=1e-12, atol=1e-13,
-            err_msg=f"{shape} {spmd} periodic={periodic}",
-        )
-
-
 def test_shardmap_coupled_with_land_mask_matches_single_device():
     """Coastline mask under shard_map: no-slip coastal nodes + impermeable
-    faces ride the blocked mEVP and the spmd tiled transport together."""
+    faces ride the blocked mEVP and the spmd staged transport together."""
     from nextsimdg_tpu.dynamics.landmask import synthetic_coastline
 
     mesh, _, state, pf, df = global_setup(n=16)
@@ -435,8 +315,7 @@ def test_shardmap_coupled_with_land_mask_matches_single_device():
     device_mesh = make_spatial_mesh((4, 2))
     _, sharded_step = build_sharded_coupled_model(
         mesh, device_mesh, degree=1, n_subcycles=10, ocean_mask=coast,
-        mevp_backend="blocked-interpret", mevp_block_halo=4,
-        transport_backend="tiled-interpret",
+        mevp_backend="blocked", mevp_block_halo=4,
     )
     got = sharded_step(state, pf, df, 600.0)
     for a, b in zip(jax.tree.leaves(expected), jax.tree.leaves(got)):
@@ -445,25 +324,6 @@ def test_shardmap_coupled_with_land_mask_matches_single_device():
         )
     land = coast == 0.0
     assert np.all(np.asarray(got.velocity.u)[land] == 0.0)
-
-
-def test_rdma_coupled_matches_blocked():
-    """The flagship coupled model on its own 2-D ('X','Y') mesh with
-    mevp_backend='rdma' (in-kernel overlapped halo exchange) == the
-    'blocked' ppermute path == single-device."""
-    mesh, ref_model, state, pf, df = global_setup(n=16)
-    expected = ref_model.step(state, pf, df, dt=600.0)
-
-    device_mesh = make_spatial_mesh((2, 2))
-    _, rdma_step = build_sharded_coupled_model(
-        mesh, device_mesh, degree=1, n_subcycles=10,
-        mevp_backend="rdma-interpret", mevp_block_halo=4,
-    )
-    got = rdma_step(state, pf, df, 600.0)
-    for a, b in zip(jax.tree.leaves(expected), jax.tree.leaves(got)):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-10, atol=1e-11
-        )
 
 
 def test_shardmap_winton_3layer_matches_single_device():
@@ -497,8 +357,8 @@ def test_shardmap_winton_3layer_matches_single_device():
 
 
 def test_shardmap_tvb_staged_fallback_matches_single_device():
-    """A TVB slope-limiter config under shard_map on the STAGED spmd
-    transport path (the auto default off-TPU) must match single-device."""
+    """A TVB slope-limiter config under shard_map on the staged spmd
+    transport path must match single-device."""
     mesh, _, _, pf, df = global_setup(n=16)
     ref_model = CoupledModel(mesh, degree=1, n_subcycles=10, tvb_m=50.0)
     assert ref_model.transport.tvb_m == 50.0
@@ -508,43 +368,13 @@ def test_shardmap_tvb_staged_fallback_matches_single_device():
     expected = ref_model.step(state, pf, df, dt=600.0)
 
     device_mesh = make_spatial_mesh((4, 2))
-    model, sharded_step = build_sharded_coupled_model(
+    _, sharded_step = build_sharded_coupled_model(
         mesh, device_mesh, degree=1, n_subcycles=10, tvb_m=50.0
     )
-    # backend='auto' off-TPU: the staged spmd path.
-    assert model._tiled_transport_mode() is None
     got = sharded_step(state, pf, df, 600.0)
     for a, b in zip(jax.tree.leaves(expected), jax.tree.leaves(got)):
         np.testing.assert_allclose(
             np.asarray(a), np.asarray(b), rtol=1e-10, atol=1e-11
-        )
-
-
-def test_shardmap_tiled_transport_tvb_matches_staged():
-    """TVB through the spmd TILED transport (round 4): the wall-delta
-    masks ride the kernel as consts — the global walls sit H rows inside
-    the widened block where the local iota select cannot see them — and
-    the result must equal the staged single-device TVB path."""
-    mesh, _, _, pf, df = global_setup(n=16)
-    ref_model = CoupledModel(mesh, degree=1, n_subcycles=10, tvb_m=50.0)
-    state = ref_model.initial_state(
-        hice0=1.0, cice0=0.9, hsnow0=0.05, dtype=jnp.float64
-    )
-    expected = ref_model.step(state, pf, df, dt=600.0)
-
-    # (2, 2): TVB's exchange halo H=8 (k_cap >= 1 at doubled rings) must
-    # fit the local block, so 8x8 locals are the 16^2 minimum.
-    device_mesh = make_spatial_mesh((2, 2))
-    model, sharded_step = build_sharded_coupled_model(
-        mesh, device_mesh, degree=1, n_subcycles=10, tvb_m=50.0,
-        transport_backend="tiled-interpret",
-        mevp_backend="blocked-interpret", mevp_block_halo=4,
-    )
-    assert model._tiled_transport_mode() == "interpret-spmd"
-    got = sharded_step(state, pf, df, 600.0)
-    for a, b in zip(jax.tree.leaves(expected), jax.tree.leaves(got)):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-10, atol=1e-12
         )
 
 
@@ -629,7 +459,7 @@ def test_blocked_100_subcycle_drift_bounded():
     blocked path is BIT-EXACT vs single-device at 10/20/50/100/200
     subcycles for both halos; the 1e-8 bound below is the guard for
     compilation contexts whose fusion choices differ (observed on other
-    configs, docs/performance.md round 3), asserted at 100 subcycles.
+    configs), asserted at 100 subcycles.
     """
     from jax.sharding import PartitionSpec as P
 
@@ -680,131 +510,6 @@ def test_blocked_100_subcycle_drift_bounded():
             )
 
 
-@pytest.mark.parametrize(
-    "shape,spmd,periodic",
-    [
-        ((4, 1), ("X", None), False),  # 1-D x strips
-        ((1, 4), (None, "Y"), False),  # 1-D y strips (lane dim)
-        ((2, 2), ("X", "Y"), False),   # 2-D + two-phase corner exchange
-        ((2, 2), ("X", "Y"), True),    # periodic wrap rides the ring
-    ],
-)
-def test_ho_rdma_halo_exchange_matches_per_subcycle(shape, spmd, periodic):
-    """HO (CG2/dG1) backend='rdma-interpret': the 17-plane state rides the
-    generalized in-kernel band exchange and must equal the single-device
-    XLA result exactly (round-3 verdict missing #3)."""
-    from jax.sharding import PartitionSpec as P
-
-    from nextsimdg_tpu.dynamics.mevp import MEVPParams
-    from nextsimdg_tpu.dynamics.mevp_ho import (
-        HODynamicsForcing,
-        HOField,
-        HOVelocityState,
-        MEVPSolverHO,
-    )
-
-    n = 32
-    mesh = RectMesh(
-        nx=n, ny=n, dx=512e3 / n, dy=512e3 / n,
-        periodic_x=periodic, periodic_y=periodic,
-    )
-    dtype = jnp.float64
-    full = lambda v: jnp.full((n, n), v, dtype)
-    h, a = full(2.0), full(0.95)
-    const = lambda v: HOField(v=full(v), b=full(v), l=full(v), c=full(v))
-    gx = jnp.asarray(np.linspace(6.0, 10.0, n)[:, None] * np.ones((1, n)))
-    df = HODynamicsForcing(
-        u_atm=HOField(v=gx, b=gx, l=gx, c=gx), v_atm=const(3.0),
-        u_ocean=const(0.02), v_ocean=const(0.0),
-    )
-    state = HOVelocityState.zeros(n, n, dtype)
-
-    ref = MEVPSolverHO(mesh, MEVPParams(), backend="xla")
-    expected = ref.step(state, h, a, df, ref.boundary_mask(dtype), 600.0, 11)
-
-    device_mesh = make_spatial_mesh(shape)
-    px, py = shape
-    local = RectMesh(
-        nx=n // px, ny=n // py, dx=mesh.dx, dy=mesh.dy,
-        periodic_x=periodic, periodic_y=periodic,
-    )
-    spec = P(*spmd)
-    solver = MEVPSolverHO(
-        local, MEVPParams(), backend="rdma-interpret", spmd=spmd,
-        block_halo=4,  # 11 subcycles = rounds of 4 + 4 + 3
-    )
-
-    def spec_of(leaf):
-        nd = np.ndim(leaf)
-        return P(*([None] * (nd - 2) + list(spmd)))
-
-    def step_local(s, hh, aa, d):
-        mask = solver.boundary_mask(dtype)
-        return solver.step(s, hh, aa, d, mask, 600.0, 11)
-
-    got = jax.jit(
-        jax.shard_map(
-            step_local,
-            mesh=device_mesh,
-            in_specs=(
-                jax.tree.map(spec_of, state),
-                spec, spec, jax.tree.map(spec_of, df),
-            ),
-            out_specs=jax.tree.map(spec_of, state),
-            check_vma=False,
-        )
-    )(state, h, a, df)
-    for x, y in zip(jax.tree.leaves(expected), jax.tree.leaves(got)):
-        np.testing.assert_allclose(
-            np.asarray(x), np.asarray(y), rtol=1e-12, atol=1e-13,
-            err_msg=f"{shape} {spmd} periodic={periodic}",
-        )
-
-
-def test_ho_rdma_coupled_matches_single_device():
-    """The coupled model with HO dynamics + mevp_backend='rdma' on a 2-D
-    device mesh == the single-device reference."""
-    from nextsimdg_tpu.modules import ModuleRegistry
-
-    ModuleRegistry.get_loader().set_implementation(
-        "Nextsim::IDynamics", "Nextsim::MEVPHighOrder"
-    )
-    mesh, ref_model, state, pf, df = global_setup(n=16)
-    assert ref_model.is_high_order
-    expected = ref_model.step(state, pf, df, dt=600.0)
-
-    device_mesh = make_spatial_mesh((2, 2))
-    _, rdma_step = build_sharded_coupled_model(
-        mesh, device_mesh, degree=1, n_subcycles=10,
-        mevp_backend="rdma-interpret", mevp_block_halo=4,
-    )
-    got = rdma_step(state, pf, df, 600.0)
-    for a, b in zip(jax.tree.leaves(expected), jax.tree.leaves(got)):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-10, atol=1e-11
-        )
-
-
-def test_shardmap_tiled_transport_periodic_matches_staged():
-    """Blocked spmd tiled transport on a PERIODIC global domain (round 4):
-    halo_widen's ring wrap supplies the wrap neighbors; no wall zeroing."""
-    mesh, ref_model, state, pf, df = global_setup(n=16, periodic=True)
-    expected = ref_model.step(state, pf, df, dt=600.0)
-
-    device_mesh = make_spatial_mesh((4, 2))
-    model, sharded_step = build_sharded_coupled_model(
-        mesh, device_mesh, degree=1, n_subcycles=10,
-        transport_backend="tiled-interpret",
-        mevp_backend="blocked-interpret", mevp_block_halo=4,
-    )
-    assert model._tiled_transport_mode() == "interpret-spmd"
-    got = sharded_step(state, pf, df, 600.0)
-    for a, b in zip(jax.tree.leaves(expected), jax.tree.leaves(got)):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-10, atol=1e-12
-        )
-
-
 def test_adaptive_alpha_blocked_matches_per_subcycle():
     """adaptive_alpha adds NO stencil reach (alpha is computed from the
     local zeta), so the blocked ghost-zone invalidation argument holds
@@ -833,9 +538,7 @@ def test_adaptive_alpha_blocked_matches_per_subcycle():
     local = RectMesh(nx=n // px, ny=n // py, dx=mesh.dx, dy=mesh.dy)
     spec = P("X", "Y")
 
-    for backend, halo in (
-        ("blocked", 4), ("blocked-interpret", 5), ("rdma-interpret", 4)
-    ):
+    for backend, halo in (("blocked", 4), ("blocked", 5)):
         solver = MEVPSolver(
             local, params, backend=backend, spmd=("X", "Y"), block_halo=halo
         )

@@ -77,8 +77,8 @@ def test_local_view_static_metric_raises():
 @pytest.mark.parametrize("geometry", ["graded", "spherical"])
 def test_mevp_blocked_nonuniform_matches_single_device(geometry):
     """CG1 mEVP on a non-uniform global mesh under shard_map: the
-    per-subcycle 'xla' path AND the ghost-zone 'blocked' path (incl. the
-    fused-kernel interpret engine) == the single-device result."""
+    per-subcycle 'xla' path AND the ghost-zone 'blocked' path (two halo
+    widths) == the single-device result."""
     n = 32
     mesh = graded_mesh(n) if geometry == "graded" else spherical_mesh(n)
     dtype = jnp.float64
@@ -99,7 +99,7 @@ def test_mevp_blocked_nonuniform_matches_single_device(geometry):
     for backend, halo in (
         ("xla", None),
         ("blocked", 4),
-        ("blocked-interpret", 4),
+        ("blocked", 5),
     ):
         kwargs = {} if halo is None else {"block_halo": halo}
         solver = MEVPSolver(
@@ -164,7 +164,7 @@ def test_mevp_ho_blocked_nonuniform_matches_single_device(geometry):
     for backend, halo in (
         ("xla", None),
         ("blocked", 4),
-        ("blocked-interpret", 4),
+        ("blocked", 5),
     ):
         kwargs = {} if halo is None else {"block_halo": halo}
         solver = MEVPSolverHO(
@@ -226,7 +226,7 @@ def test_shardmap_coupled_nonuniform_matches_single_device(geometry):
     device_mesh = make_spatial_mesh((4, 2))
     for backend_kwargs in (
         {},
-        {"mevp_backend": "blocked-interpret", "mevp_block_halo": 4},
+        {"mevp_backend": "blocked", "mevp_block_halo": 4},
     ):
         _, sharded_step = build_sharded_coupled_model(
             mesh, device_mesh, degree=1, n_subcycles=10, **backend_kwargs
@@ -237,86 +237,6 @@ def test_shardmap_coupled_nonuniform_matches_single_device(geometry):
                 np.asarray(a), np.asarray(b), rtol=1e-8, atol=1e-11,
                 err_msg=f"{geometry} {backend_kwargs}",
             )
-
-
-@pytest.mark.parametrize("geometry", ["graded", "spherical"])
-def test_shardmap_tiled_transport_nonuniform_matches_staged(geometry):
-    """The blocked spmd tiled transport on a non-uniform global mesh:
-    the widened metric planes ride the single-chip kernel as consts and
-    must reproduce the staged single-device result."""
-    n = 16
-    mesh = graded_mesh(n) if geometry == "graded" else spherical_mesh(n)
-    ref_model = CoupledModel(mesh, degree=1, n_subcycles=10)
-    state = ref_model.initial_state(hice0=1.0, cice0=0.9, hsnow0=0.05, dtype=jnp.float64)
-    pf, df = _coupled_setup(mesh)
-    expected = ref_model.step(state, pf, df, dt=600.0)
-
-    device_mesh = make_spatial_mesh((4, 2))
-    model, sharded_step = build_sharded_coupled_model(
-        mesh, device_mesh, degree=1, n_subcycles=10,
-        transport_backend="tiled-interpret",
-        mevp_backend="blocked-interpret", mevp_block_halo=4,
-    )
-    assert model._tiled_transport_mode() == "interpret-spmd"
-    got = sharded_step(state, pf, df, 600.0)
-    for a, b in zip(jax.tree.leaves(expected), jax.tree.leaves(got)):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-8, atol=1e-11,
-            err_msg=geometry,
-        )
-
-
-@pytest.mark.parametrize(
-    "shape,spmd",
-    [
-        ((4, 1), ("X", None)),  # 1-D x strips
-        ((2, 2), ("X", "Y")),   # 2-D + two-phase corner exchange
-    ],
-)
-def test_rdma_nonuniform_matches_single_device(shape, spmd):
-    """RDMA overlapped halo exchange on a GRADED global mesh: the widened
-    metric const planes flow through the in-kernel band re-runs."""
-    n = 32
-    mesh = graded_mesh(n)
-    dtype = jnp.float64
-    full = lambda v: jnp.full((n, n), v, dtype)
-    h, a = full(2.0), full(0.95)
-    df = DynamicsForcing(
-        u_atm=full(10.0), v_atm=full(3.0), u_ocean=full(0.02), v_ocean=full(0.0)
-    )
-    state = VelocityState.zeros(n, n, dtype)
-
-    ref = MEVPSolver(mesh, MEVPParams(), backend="xla")
-    expected = ref.step(state, h, a, df, ref.boundary_mask(dtype), 600.0, 11)
-
-    device_mesh = make_spatial_mesh(shape)
-    local = LocalMeshView(mesh, *shape)
-    spec = P(*spmd)
-    solver = MEVPSolver(
-        local, MEVPParams(), backend="rdma-interpret", spmd=spmd, block_halo=4
-    )
-
-    def step_local(s, hh, aa, d):
-        mask = solver.boundary_mask(dtype)
-        return solver.step(s, hh, aa, d, mask, 600.0, 11)
-
-    got = jax.jit(
-        jax.shard_map(
-            step_local,
-            mesh=device_mesh,
-            in_specs=(
-                jax.tree.map(lambda _: spec, state),
-                spec, spec, jax.tree.map(lambda _: spec, df),
-            ),
-            out_specs=jax.tree.map(lambda _: spec, state),
-            check_vma=False,
-        )
-    )(state, h, a, df)
-    for x, y in zip(jax.tree.leaves(expected), jax.tree.leaves(got)):
-        np.testing.assert_allclose(
-            np.asarray(x), np.asarray(y), rtol=1e-8, atol=1e-11,
-            err_msg=f"{shape} {spmd}",
-        )
 
 
 def test_shardmap_coupled_ho_spherical_matches_single_device():
@@ -341,7 +261,7 @@ def test_shardmap_coupled_ho_spherical_matches_single_device():
     device_mesh = make_spatial_mesh((4, 2))
     _, sharded_step = build_sharded_coupled_model(
         mesh, device_mesh, degree=1, n_subcycles=10, ocean_mask=coast,
-        mevp_backend="blocked-interpret", mevp_block_halo=4,
+        mevp_backend="blocked", mevp_block_halo=4,
     )
     got = sharded_step(state, pf, df, 600.0)
     for a, b in zip(jax.tree.leaves(expected), jax.tree.leaves(got)):
@@ -374,10 +294,9 @@ def test_mevp_blocked_graded_aweighted_matches_single_device():
     local = LocalMeshView(mesh, 4, 2)
     spec = P("X", "Y")
     solver = MEVPSolver(
-        local, params, backend="blocked-interpret", spmd=("X", "Y"),
+        local, params, backend="blocked", spmd=("X", "Y"),
         block_halo=4,
     )
-    assert solver._n_consts() == 13  # 7 + 5 metric + 1 a_node
 
     def step_local(s, hh, aa, d):
         mask = solver.boundary_mask(dtype)
@@ -420,7 +339,7 @@ def test_mevp_blocked_ring_spherical_matches_single_device():
     """CG1 mEVP on the full longitude ring under shard_map: the periodic
     wrap must ride the DEVICE ring (the +x neighbor of the last device
     column is device column 0) while LocalMeshView slices each device's
-    metric — xla, blocked and blocked-interpret backends."""
+    metric — xla and blocked backends."""
     n = 32
     mesh = ring_mesh(n)
     dtype = jnp.float64
@@ -441,7 +360,7 @@ def test_mevp_blocked_ring_spherical_matches_single_device():
     for backend, halo in (
         ("xla", None),
         ("blocked", 4),
-        ("blocked-interpret", 4),
+        ("blocked", 5),
     ):
         kwargs = {} if halo is None else {"block_halo": halo}
         solver = MEVPSolver(
@@ -499,7 +418,7 @@ def test_mevp_ho_blocked_ring_spherical_matches_single_device():
         nd = np.ndim(leaf)
         return P(*([None] * (nd - 2) + ["X", "Y"]))
 
-    for backend, halo in (("xla", None), ("blocked-interpret", 4)):
+    for backend, halo in (("xla", None), ("blocked", 4)):
         kwargs = {} if halo is None else {"block_halo": halo}
         solver = MEVPSolverHO(
             local, MEVPParams(), backend=backend, spmd=("X", "Y"), **kwargs
@@ -530,8 +449,8 @@ def test_mevp_ho_blocked_ring_spherical_matches_single_device():
 
 def test_shardmap_coupled_ring_matches_single_device():
     """Full coupled step (mEVP + transport + thermo) on the longitude
-    ring through build_sharded_coupled_model, per-subcycle AND blocked +
-    tiled-transport backends — the production config-5 composition."""
+    ring through build_sharded_coupled_model, per-subcycle AND blocked
+    backends — the production config-5 composition."""
     n = 16
     mesh = ring_mesh(n)
     ref_model = CoupledModel(mesh, degree=1, n_subcycles=10)
@@ -544,10 +463,7 @@ def test_shardmap_coupled_ring_matches_single_device():
     device_mesh = make_spatial_mesh((4, 2))
     for backend_kwargs in (
         {},
-        {
-            "mevp_backend": "blocked-interpret", "mevp_block_halo": 4,
-            "transport_backend": "tiled-interpret",
-        },
+        {"mevp_backend": "blocked", "mevp_block_halo": 4},
     ):
         _, sharded_step = build_sharded_coupled_model(
             mesh, device_mesh, degree=1, n_subcycles=10, **backend_kwargs
@@ -558,50 +474,3 @@ def test_shardmap_coupled_ring_matches_single_device():
                 np.asarray(a), np.asarray(b), rtol=1e-8, atol=1e-11,
                 err_msg=f"ring {backend_kwargs}",
             )
-
-
-def test_rdma_ring_spherical_matches_single_device():
-    """RDMA overlapped exchange on the longitude ring: the in-kernel
-    remote copies must wrap the device ring while the widened metric
-    const planes come from LocalMeshView."""
-    n = 32
-    mesh = ring_mesh(n)
-    dtype = jnp.float64
-    full = lambda v: jnp.full((n, n), v, dtype)
-    h, a = full(2.0), full(0.95)
-    df = DynamicsForcing(
-        u_atm=full(10.0), v_atm=full(3.0), u_ocean=full(0.02), v_ocean=full(0.0)
-    )
-    state = VelocityState.zeros(n, n, dtype)
-
-    ref = MEVPSolver(mesh, MEVPParams(), backend="xla")
-    expected = ref.step(state, h, a, df, ref.boundary_mask(dtype), 600.0, 11)
-
-    shape, spmd = (4, 1), ("X", None)
-    device_mesh = make_spatial_mesh(shape)
-    local = LocalMeshView(mesh, *shape)
-    spec = P(*spmd)
-    solver = MEVPSolver(
-        local, MEVPParams(), backend="rdma-interpret", spmd=spmd, block_halo=4
-    )
-
-    def step_local(s, hh, aa, d):
-        mask = solver.boundary_mask(dtype)
-        return solver.step(s, hh, aa, d, mask, 600.0, 11)
-
-    got = jax.jit(
-        jax.shard_map(
-            step_local,
-            mesh=device_mesh,
-            in_specs=(
-                jax.tree.map(lambda _: spec, state),
-                spec, spec, jax.tree.map(lambda _: spec, df),
-            ),
-            out_specs=jax.tree.map(lambda _: spec, state),
-            check_vma=False,
-        )
-    )(state, h, a, df)
-    for x, y in zip(jax.tree.leaves(expected), jax.tree.leaves(got)):
-        np.testing.assert_allclose(
-            np.asarray(x), np.asarray(y), rtol=1e-8, atol=1e-11,
-        )

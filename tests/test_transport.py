@@ -5,7 +5,6 @@ north-star contract (BASELINE.json): solid-body rotation of a tracer blob
 must conserve mass to machine precision and converge with DG order.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -137,7 +136,6 @@ def test_velocity_from_cg_matches_analytic_for_bilinear_field():
 def test_transport_substeps_stabilize_high_cfl():
     """CoupledModel(transport_substeps=k) advects with dt/k, restoring
     stability when u dt/dx exceeds the explicit dG1/RK2 limit (~1/3)."""
-    import jax
     from nextsimdg_tpu.coupled import CoupledModel
     from nextsimdg_tpu.dynamics.mevp import DynamicsForcing
 
@@ -261,42 +259,3 @@ def test_tvb_limiter_bounds_dg2_square_wave():
     assert over_pos > 1e-3, over_pos   # the ringing the limiter must fix
     assert over_tvb < 1e-4, over_tvb   # bounded with TVB slopes
     assert results["tvb"].min() > -1e-12
-
-
-def test_tiled_transport_periodic_matches_staged():
-    """Periodic domains on the tiled transport kernel: wrap halos along x
-    (opposite-interior DMA fill), in-block lane wrap along y == staged."""
-    import jax
-    import jax.numpy as jnp
-
-    from nextsimdg_tpu.coupled import CoupledModel
-    from nextsimdg_tpu.dynamics import RectMesh
-    from nextsimdg_tpu.dynamics.mevp import DynamicsForcing
-    from nextsimdg_tpu.state import Forcing
-
-    n = 16
-    mesh = RectMesh(nx=n, ny=n, dx=32000.0, dy=32000.0,
-                    periodic_x=True, periodic_y=True)
-    dtype = jnp.float64
-    full = lambda v: jnp.full((n, n), v, dtype)
-    pf = Forcing(
-        tair=full(-10.0), dew2m=full(-12.0), pair=full(1e5), sw_in=full(10.0),
-        lw_in=full(250.0), mld=full(10.0), snowfall=full(1e-4), wind=full(8.0),
-    )
-    import numpy as _np
-    gx = jnp.asarray(_np.linspace(6.0, 10.0, n)[:, None] * _np.ones((1, n)))
-    df = DynamicsForcing(u_atm=gx, v_atm=full(2.0),
-                         u_ocean=full(0.02), v_ocean=full(0.0))
-
-    staged = CoupledModel(mesh, degree=1, n_subcycles=10)
-    tiled = CoupledModel(mesh, degree=1, n_subcycles=10,
-                         transport_backend="tiled-interpret")
-    assert tiled._tiled_transport_mode() == "interpret"
-    state = staged.initial_state(hice0=1.0, cice0=0.9, hsnow0=0.05, dtype=dtype)
-
-    expected = staged.step(state, pf, df, dt=600.0)
-    got = tiled.step(state, pf, df, dt=600.0)
-    for a, b in zip(jax.tree.leaves(expected), jax.tree.leaves(got)):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-10, atol=1e-12
-        )
